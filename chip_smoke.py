@@ -12,17 +12,26 @@ without a card:
      20k-triangle textured sphere (bench.py's workload, built in numpy from
      seed 0) as a Scene on cuda -> convert(512, 6) -> export_ply in all three
      formats -> 1920x1080 renders in ALBEDO and FINAL -> an albedo-only tiled
-     raster; the kernels' launch counters are zeroed before and read after;
+     raster; then the training paths at full size: fit_splats (3 Adam steps,
+     2 views at 1920x1080, the 1,534,657 splats), fit_textures (the sphere at
+     resolution 512, two 512x512 views, 2 steps), bench.py's 1080p gradient
+     and the five-target G-buffer loss's gradient (the full composite
+     backward); the kernels' launch counters are zeroed before each path and
+     read after it;
   4. each kernel against its plain PyTorch version on the same CUDA tensors,
      at the shapes of phase 3;
-  5. the whole slice on the card against the same code on the CPU, small;
-  6. kernel times (CUDA events) beside the plain versions and the bound.
+  5. the whole slice on the card against the same code on the CPU, small:
+     conversion and render, one fit_splats loss and gradient, one
+     fit_textures gradient;
+  6. kernel times (CUDA events) beside the plain versions and the bound,
+     and the training step's time.
 It ends with a JSON line of kernel numbers, the card's name and power limit,
 and {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,6 +45,13 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 W_PX, H_PX = 1920, 1080
 EYE = [0.0, 0.0, 3.2]         # bench.py's 1080p camera
+EYE2 = [0.8, 0.4, 3.0]        # the second training view
+FIT_STEPS = 3
+FIT_LR = 1e-3
+TEX_STEPS = 2
+TEX_PX = 512                  # fit_textures' views
+MAIN_KERNELS = ("texel_rows", "fragment_apply", "composite_full",
+                "composite_albedo")
 
 
 def log(msg):
@@ -102,13 +118,14 @@ class Capture:
         self.saved = {}
 
     def __enter__(self):
-        for name in ("texel_rows", "fragment_apply", "composite_forward"):
+        for name in ("texel_rows", "fragment_apply", "composite_forward",
+                     "composite_backward"):
             real = getattr(self.kernels, name)
             self.saved[name] = real
 
             def spy(*args, _real=real, _name=name, **kw):
                 key = _name
-                if _name == "composite_forward":
+                if _name.startswith("composite"):
                     key += "_albedo" if kw["albedo_only"] else "_full"
                 self.seen.setdefault(key, (args, kw))
                 return _real(*args, **kw)
@@ -158,6 +175,227 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def training_inputs(torch, TFIT, sp, mult, dev):
+    """fit_splats' workload: the two 1080p views, the targets (render_rgb
+    of the converted splats) and the start (the same splats with colours
+    from numpy uniform noise, seed 0). The training loss renders splats in
+    world units (SplatFormat.PLY_3DGS, as the JAX package's l2_loss does):
+    the converted splats' scales times the conversion's sigma, as export_ply
+    writes them."""
+    from mesh2splat_torch.types import make_camera
+
+    cams = [make_camera(e, [0, 0, 0], [0, 1, 0], np.pi / 3, W_PX, H_PX,
+                        device=dev) for e in (EYE, EYE2)]
+    sp_real = dataclasses.replace(sp, scale=sp.scale * mult)
+    with torch.no_grad():
+        targets = torch.stack([TFIT.render_rgb(sp_real, c, W_PX, H_PX)
+                               for c in cams])
+    noise = np.random.default_rng(0).uniform(0, 1, (sp.capacity, 3))
+    start = dataclasses.replace(sp_real, color=torch.cat(
+        [torch.from_numpy(noise.astype(np.float32)).to(dev),
+         sp_real.color[:, 3:]], 1))
+    return cams, targets, start
+
+
+def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
+                   pair_cap, dev):
+    """Phase 3b: the training paths at full size, each with the launch
+    counters zeroed before it and read after it. Returns their counts, the
+    capture of the kernels' arguments and the time lines for phase 6."""
+    from mesh2splat_torch.ops import conversion as TC
+    from mesh2splat_torch.ops.projection import project_splats
+    from mesh2splat_torch.render import binning as TB
+    from mesh2splat_torch.render.tiled import rasterize_tiled
+    from mesh2splat_torch.types import SplatFormat, make_camera
+
+    paths, times = {}, []
+
+    def run(name, fn, expect):
+        kernels.reset_launches()
+        out = fn()
+        sync()
+        paths[name] = dict(kernels.launches)
+        for k, n in expect.items():
+            check(paths[name][k] == n, f"{name}: kernel {k} launched "
+                  f"{paths[name][k]} times, expected {n}")
+        log(f"{name}: launches {paths[name]}")
+        return out
+
+    cams, targets, start = training_inputs(torch, TFIT, sp, mult, dev)
+    fit_cfg = TFIT.FitConfig(steps=FIT_STEPS, lr=FIT_LR, width=W_PX,
+                             height=H_PX, std_dev=mult)
+    torch.cuda.reset_peak_memory_stats()
+    with Capture(kernels) as cap:
+        t0 = time.perf_counter()
+        _, hist = run("fit_splats",
+                      lambda: TFIT.fit_splats(start, cams, targets, fit_cfg),
+                      {"composite_albedo": 2 * FIT_STEPS,
+                       "composite_bwd_albedo": 2 * FIT_STEPS})
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"fit_splats: {sp.capacity} splats ({int(sp.count())} valid), 2 "
+            f"views at {W_PX}x{H_PX}, {FIT_STEPS} steps in {fit_s:.2f} s, "
+            f"history {hist}, peak memory {peak:.2f} GiB")
+        check(all(np.isfinite(hist)) and hist[-1] < hist[0],
+              f"fit_splats history {hist}")
+
+        # fit_textures: the sphere's base colour from a flat grey start
+        mesh, mat, pr = scene.primitives[0]
+        lo, hi = mesh.bbox()
+        cfg = TC.calibrate(mesh, lo, hi, TC.ConversionConfig(
+            scene.last_config.resolution, 6))
+        tcams = [make_camera(e, [0, 0, 0], [0, 1, 0], np.pi / 3, TEX_PX,
+                             TEX_PX, device=dev) for e in (EYE, EYE2)]
+        with torch.no_grad():
+            sp_gt = TC.convert(mesh, mat, lo, hi, cfg)
+            tex_targets = torch.stack([TFIT.render_rgb(
+                sp_gt, c, TEX_PX, TEX_PX, std_dev=mult,
+                splat_format=SplatFormat.MESH2SPLAT) for c in tcams])
+        grey = dataclasses.replace(mat, base_color=torch.full_like(
+            mat.base_color, 0.5))
+        t0 = time.perf_counter()
+        fitted, tex_hist = run(
+            "fit_textures",
+            lambda: TFIT.fit_textures(
+                mesh, grey, cfg, tcams, tex_targets,
+                TFIT.FitTexturesConfig(steps=TEX_STEPS, lr=5e-2,
+                                       width=TEX_PX, height=TEX_PX)),
+            {"texel_rows": TEX_STEPS, "fragment_apply": TEX_STEPS,
+             "composite_albedo": 2 * TEX_STEPS,
+             "composite_bwd_albedo": 2 * TEX_STEPS})
+        tex_s = time.perf_counter() - t0
+        tex = grey.base_color.clone().requires_grad_(True)
+        sp_t = TC.convert(mesh, dataclasses.replace(grey, base_color=tex),
+                          lo, hi, cfg)
+        loss = torch.mean((TFIT.render_rgb(
+            sp_t, tcams[0], TEX_PX, TEX_PX, std_dev=mult,
+            splat_format=SplatFormat.MESH2SPLAT) - tex_targets[0]) ** 2)
+        (g_tex,) = torch.autograd.grad(loss, [tex])
+        log(f"fit_textures: {cfg.capacity} slots, 2 views at "
+            f"{TEX_PX}x{TEX_PX}, "
+            f"{TEX_STEPS} steps in {tex_s:.2f} s, history {tex_hist}, "
+            f"texture gradient max |g| {float(g_tex.abs().max()):.3g}")
+        check(all(np.isfinite(tex_hist))
+              and bool(torch.isfinite(fitted.base_color).all()),
+              f"fit_textures history {tex_hist}")
+        check(bool(torch.isfinite(g_tex).all()) and bool(g_tex.any()),
+              "fit_textures: texture gradient not finite or zero")
+
+        # bench.py's gradient: mean of the 1080p albedo with respect to
+        # pos, color, scale and quat
+        def fwd(s):
+            return rasterize_tiled(project_splats(s, cam, **proj_kw), W_PX,
+                                   H_PX, pair_capacity=pair_cap,
+                                   albedo_only=True)["albedo"]
+
+        def bench_grad():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (sp.pos, sp.color, sp.scale, sp.quat)]
+            s2 = dataclasses.replace(sp, pos=leaves[0], color=leaves[1],
+                                     scale=leaves[2], quat=leaves[3])
+            return torch.autograd.grad(fwd(s2).mean(), leaves)
+
+        grads = run("grad_albedo", bench_grad,
+                    {"composite_albedo": 1, "composite_bwd_albedo": 1})
+        check(all(bool(torch.isfinite(g).all()) for g in grads),
+              "1080p gradient not finite")
+
+        # the five-target loss of tests/test_tiled.py:114-120: the full
+        # composite backward
+        wgt = torch.from_numpy(np.random.default_rng(9).uniform(
+            0, 1, (H_PX, W_PX, 4)).astype(np.float32)).to(dev)
+
+        def grad_full():
+            pos = sp.pos.detach().requires_grad_(True)
+            color = sp.color.detach().requires_grad_(True)
+            out = rasterize_tiled(project_splats(
+                dataclasses.replace(sp, pos=pos, color=color), cam,
+                **proj_kw), W_PX, H_PX, pair_capacity=pair_cap)
+            loss = ((out["albedo"] * wgt).sum()
+                    + 0.3 * out["normal"][..., :3].sum()
+                    + 0.2 * (out["position"][..., :3] * wgt[..., :3]).sum()
+                    + 0.1 * out["depth"][..., 0].sum()
+                    + 0.1 * out["metal_rough"][..., :2].sum())
+            return torch.autograd.grad(loss, [pos, color])
+
+        g_full = run("grad_full", grad_full,
+                     {"composite_full": 1, "composite_bwd_full": 1})
+        check(all(bool(torch.isfinite(g).all()) for g in g_full),
+              "five-target gradient not finite")
+
+    # times: the training step and bench.py's forward / forward+backward
+    with torch.no_grad():
+        need = max(int(TB.required_overflow(project_splats(
+            start, c, splat_format=SplatFormat.PLY_3DGS), W_PX, H_PX))
+            for c in cams)
+    params = TFIT.SplatParams.from_splats(start)
+    opt = torch.optim.Adam(params.parameters(), lr=1e-2,
+                           betas=TFIT.ADAM_BETAS, eps=TFIT.ADAM_EPS)
+    step = TFIT.train_step_fn(opt, W_PX, H_PX, std_dev=mult,
+                              pair_capacity=TB.round_pow2_budget(need))
+    step_ms = host_ms(lambda: step(params, start.valid, cams, targets), 3)
+    with torch.no_grad():
+        fwd_ms = host_ms(lambda: fwd(sp), 5)
+    fb_ms = host_ms(bench_grad, 5)
+    times.append(f"fit_splats step (2 views at {W_PX}x{H_PX}, "
+                 f"{sp.capacity} splats): {step_ms:.2f} ms")
+    times.append(f"1080p albedo forward {fwd_ms:.2f} ms, forward+backward "
+                 f"{fb_ms:.2f} ms, bwd/fwd {(fb_ms - fwd_ms) / fwd_ms:.2f}, "
+                 f"fwd+bwd / fwd {fb_ms / fwd_ms:.2f}")
+    return {"paths": paths, "capture": cap, "times": times}
+
+
+def training_card_vs_cpu(torch, TFIT, small, got, mult_small):
+    """Phase 5's training part: one fit_splats loss and its gradients, and
+    one fit_textures gradient, on the card and on the CPU (2k triangles,
+    res 128, 160x120)."""
+    from mesh2splat_torch.ops import conversion as TC
+    from mesh2splat_torch.types import SplatFormat, make_camera
+
+    losses, grads, tex_grads = {}, {}, {}
+    noise = np.random.default_rng(0).uniform(0, 1, (got["cpu"][0].capacity,
+                                                   3)).astype(np.float32)
+    for d in ("cuda", "cpu"):
+        s_sp = got[d][0]
+        real = dataclasses.replace(s_sp, scale=s_sp.scale * mult_small)
+        cams = [make_camera(e, [0, 0, 0], [0, 1, 0], np.pi / 3, 160, 120,
+                            device=d) for e in ([0, 0.2, 3.0], EYE2)]
+        with torch.no_grad():
+            targets = torch.stack([TFIT.render_rgb(real, c, 160, 120)
+                                   for c in cams])
+        start = dataclasses.replace(real, color=torch.cat(
+            [torch.from_numpy(noise).to(d), real.color[:, 3:]], 1))
+        params = TFIT.SplatParams.from_splats(start)
+        loss = TFIT.l2_loss(params, start.valid, cams, targets, 160, 120)
+        loss.backward()
+        losses[d] = float(loss.detach())
+        grads[d] = {k: v.grad.cpu() for k, v in params.as_dict().items()
+                    if v.grad is not None}
+
+        sc = make_scene(small, d)
+        mesh, mat, _ = sc.primitives[0]
+        lo, hi = mesh.bbox()
+        tex = mat.base_color.clone().requires_grad_(True)
+        sp_t = TC.convert(mesh, dataclasses.replace(mat, base_color=tex),
+                          lo, hi, TC.ConversionConfig(128, 6))
+        img = TFIT.render_rgb(sp_t, cams[0], 160, 120, std_dev=mult_small,
+                              splat_format=SplatFormat.MESH2SPLAT)
+        (tex_grads[d],) = torch.autograd.grad((img ** 2).mean(), [tex])
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / losses["cpu"]
+    grad_rel = {k: float((grads["cuda"][k] - g).abs().max()
+                         / g.abs().max().clamp(min=1e-30))
+                for k, g in grads["cpu"].items()}
+    g_c, g_p = tex_grads["cuda"].cpu(), tex_grads["cpu"]
+    tex_rel = float((g_c - g_p).abs().max() / g_p.abs().max())
+    log(f"card vs CPU training (2k tris, res 128, 2 views at 160x120): loss "
+        f"{losses['cpu']:.6g}, relative diff {loss_rel:.3g}; gradients max "
+        f"|diff| / max |grad| {grad_rel}; fit_textures texture gradient "
+        f"{tex_rel:.3g}")
+    check(loss_rel <= 1e-5 and max(grad_rel.values()) <= 1e-3
+          and tex_rel <= 1e-3 and bool(g_p.any()),
+          "card and CPU training differ")
+
+
 def main():
     import torch
 
@@ -186,6 +424,7 @@ def main():
     from mesh2splat_torch.render import binning as TB
     from mesh2splat_torch.render import composite as TCOMP
     from mesh2splat_torch.render.tiled import rasterize_tiled
+    from mesh2splat_torch.train import fit as TFIT
     from mesh2splat_torch.types import RenderMode, SplatFormat, make_camera
 
     # ---- 2. build -------------------------------------------------------
@@ -248,8 +487,21 @@ def main():
               f"{name} out of [0, 1]")
         check(float(img.mean()) > 0.01, f"{name} image is empty")
     check(bool(torch.isfinite(gb["albedo"]).all()), "raster not finite")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in MAIN_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the main path")
+    paths = {"main": launches}
+
+    # ---- 3b. the training paths at full size ---------------------------
+    mult = scene.last_config.scale_multiplier
+    proj_kw = dict(std_dev=mult, render_mode=RenderMode.ALBEDO,
+                   splat_format=SplatFormat.MESH2SPLAT)
+    train = training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw,
+                           cam, pair_cap, dev)
+    paths.update(train["paths"])
+    cap_t = train["capture"]
+    log(f"device memory after the training paths: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
     # ---- 4. kernels against their plain versions on the card ----------
     errs = {}
@@ -294,6 +546,46 @@ def main():
         check(errs[f"composite_{variant}"] <= 1e-3,
               f"K3 {variant} differs from its plain version")
 
+    k4_inputs, covered, k4_plain_ms = {}, {}, {}
+    log(f"device memory before the K4 comparison: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    for variant in ("albedo", "full"):
+        (fields, starts, ct, res), kw4 = cap_t.seen[
+            f"composite_backward_{variant}"]
+        # the captured fields belong to the training graph: hold them alone
+        fields = fields.detach()
+        k4_inputs[variant] = (fields, starts, ct, res, kw4)
+        cov = torch.zeros(starts.shape[0] - 1, dtype=torch.int32, device=dev)
+        d_k = kernels.composite_backward(fields, starts, ct, res,
+                                         covered=cov, **kw4)
+        out = kernels.composite_forward(
+            fields, starts, height=kw4["height"], ty=kw4["ty"],
+            tx=kw4["tx"], albedo_only=kw4["albedo_only"])
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        d_p = TCOMP.composite_backward_plain(
+            fields, starts, out, ct, kw4["height"], kw4["ty"], kw4["tx"],
+            kw4["albedo_only"], tile_batch=32)
+        e1.record()
+        e1.synchronize()
+        k4_plain_ms[variant] = e0.elapsed_time(e1)
+        covered[variant] = int(cov.sum(dtype=torch.int64))
+        nf = len(TB.VARIANT_FIELDS[variant])
+        scale = float(d_p.abs().max())
+        err = float((d_k - d_p).abs().max())
+        row_rel = ((d_k - d_p)[:nf].abs().amax(1)
+                   / d_p[:nf].abs().amax(1).clamp(min=1e-30))
+        errs[f"composite_bwd_{variant}"] = err
+        errs[f"composite_bwd_{variant}_rel"] = err / scale
+        log(f"K4 composite backward {variant}: {kw4['ty'] * kw4['tx']} "
+            f"tiles, {int(starts[-1])} pairs, {covered[variant]} covered "
+            f"(pair, pixel), max |diff| {err:.3g} of max |dfields| "
+            f"{scale:.3g} (relative {err / scale:.3g}; worst row "
+            f"{float(row_rel.max()):.3g}), padding rows zero "
+            f"{not bool(d_k[nf:].any())}")
+        check(err <= 1e-3 * scale and not bool(d_k[nf:].any()),
+              f"K4 {variant} differs from its plain version")
+
     # ---- 5. the slice on the card vs the same code on the CPU ----------
     small = synth_primitive(2_000, tex=128, seed=1)
     got = {}
@@ -313,6 +605,7 @@ def main():
     log(f"card vs CPU (2k tris, res 128, 160x120): count {int(b.count())} "
         f"equal, splats max |diff| {sdiff:.3g}, image max |diff| {idiff:.3g}")
     check(sdiff <= 2e-5 and idiff <= 1e-3, "card and CPU slices differ")
+    training_card_vs_cpu(torch, TFIT, small, got, mult_small=1.0 / 128)
 
     # ---- 6. times --------------------------------------------------------
     conv_ms = host_ms(lambda: scene.convert(resolution=512, layers=6), 10)
@@ -328,14 +621,21 @@ def main():
     cap_slots = meta.shape[1]
     rows = []
 
-    def entry(name, source, replaces, ms, plain_ms, nbytes, nops, err):
+    def entry(name, source, replaces, ms, plain_ms, nbytes, nops, err,
+              path="main", rel_err=None):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_FLOPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], launches_per_main_path=launches[name],
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            launches=paths[path][name], path=path,
+            launches_per_main_path=launches[name],
+            launches_per_training_step=(paths["fit_splats"][name]
+                                        / FIT_STEPS),
+            launches_per_texture_step=(paths["fit_textures"][name]
+                                       / TEX_STEPS),
+            max_abs_err=err, max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound,
             bound_us=bound * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None))
@@ -374,10 +674,38 @@ def main():
                   fields, starts, kw3["height"], ty, tx, kw3["albedo_only"],
                   tile_batch=512), 3, warm=1),
               nbytes, ops, errs[f"composite_{variant}"])
+    for variant, n_fields, per_px in (("albedo", 9, 48), ("full", 18, 98)):
+        fields, starts, ct, res, kw4 = k4_inputs[variant]
+        pairs = int(starts[-1])
+        ty, tx = kw4["ty"], kw4["tx"]
+        # every pair of every tile is walked (no early exit): the coverage
+        # test per (pair, pixel) as K3 (22 flops), the chain and reduction
+        # terms per covered (pair, pixel) (48 albedo, 98 full, counted from
+        # the kernel's arithmetic), per pair the plane coefficients and
+        # the chain to the mean and conic (~100)
+        ops = pairs * (1024 * 22 + 100) + covered[variant] * per_px
+        n_ct = 4 if kw4["albedo_only"] else 14
+        n_res = 1 if kw4["albedo_only"] else 2
+        nbytes = (n_fields * pairs * 4 + (ty * tx + 1) * 4
+                  + (n_ct + n_res) * ty * 32 * tx * 32 * 4
+                  + fields.numel() * 4)
+        entry(f"composite_bwd_{variant}",
+              "mesh2splat_torch/kernels/csrc/composite_bwd.cu",
+              "mesh2splat_tpu/render/composite.py:501",
+              event_ms(lambda: kernels.composite_backward(
+                  fields, starts, ct, res, **kw4), 10),
+              k4_plain_ms[variant], nbytes, ops,
+              errs[f"composite_bwd_{variant}"],
+              path="fit_splats" if variant == "albedo" else "grad_full",
+              rel_err=errs[f"composite_bwd_{variant}_rel"])
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms,"
             f" bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"{r['launches']} launches on the main path)")
+            f"{r['launches']} launches on the {r['path']} path, "
+            f"{r['launches_per_training_step']:g} per fit_splats step, "
+            f"{r['launches_per_texture_step']:g} per fit_textures step)")
+    for line in train["times"]:
+        log(f"{line} ({smi})")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -10,6 +10,8 @@ tensors take the plain PyTorch versions beside them.
   fragment_apply    K2  ops/fragment.py::fragment_apply
   composite_full    K3  render/composite.py::composite_tiles
   composite_albedo  K3  the same, albedo_only=True
+  composite_bwd_full    K4  the backward of composite_tiles
+  composite_bwd_albedo  K4  the same, albedo_only=True
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 from . import build as _build
 
 launches = {"texel_rows": 0, "fragment_apply": 0, "composite_full": 0,
-            "composite_albedo": 0}
+            "composite_albedo": 0, "composite_bwd_full": 0,
+            "composite_bwd_albedo": 0}
 
 REC_W = 64
 MAX_LEVELS = 8
@@ -61,6 +64,8 @@ _SIGNATURES = {
                  [_P, _L, _P, _P, _L, _I, _Geom, _I, _I, _I, _I, _I, _P, _P]),
     "composite": ("m2s_composite_forward",
                   [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "composite_bwd": ("m2s_composite_backward",
+                      [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
 }
 _fns: dict = {}
 
@@ -163,3 +168,35 @@ def composite_forward(fields, tile_starts, *, height, ty, tx, albedo_only,
     _raise_on(err, "composite_forward")
     launches["composite_albedo" if albedo_only else "composite_full"] += 1
     return out
+
+
+def composite_backward(fields, tile_starts, ct, res, *, height, ty, tx,
+                       albedo_only, covered=None):
+    """K4: dfields (F_pad, P) f32, the VJP of composite_forward. ct is the
+    (16, ty*32, tx*32) cotangent of its output, res the (2, ty*32, tx*32)
+    per-pixel totals res_a, res_g (render/composite.py backward_totals).
+    Rows outside every tile's range come back zero. ``covered``, if given,
+    is a (ty*tx,) int32 tensor that receives each tile's count of covered
+    (pair, pixel) combinations."""
+    _check(fields, "fields", torch.float32, 2, rows=16 if albedo_only else 24)
+    dev = fields.device
+    _check(tile_starts, "tile_starts", torch.int32, 1, dev, rows=ty * tx + 1)
+    img = (ty * 32, tx * 32)
+    _check(ct, "ct", torch.float32, 3, dev, rows=16)
+    _check(res, "res", torch.float32, 3, dev, rows=2)
+    for t, name in ((ct, "ct"), (res, "res")):
+        if tuple(t.shape[1:]) != img:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"(*, {img[0]}, {img[1]})")
+    if covered is not None:
+        _check(covered, "covered", torch.int32, 1, dev, rows=ty * tx)
+    dfields = torch.zeros_like(fields)
+    err = _fn("composite_bwd")(
+        fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(), ty, tx,
+        height, int(albedo_only), ct.data_ptr(), res.data_ptr(),
+        dfields.data_ptr(),
+        covered.data_ptr() if covered is not None else None, _stream(dev))
+    _raise_on(err, "composite_backward")
+    launches["composite_bwd_albedo" if albedo_only else
+             "composite_bwd_full"] += 1
+    return dfields

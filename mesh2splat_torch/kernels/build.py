@@ -20,11 +20,11 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("texel_rows", "fragment", "composite")
+SOURCES = ("texel_rows", "fragment", "composite", "composite_bwd")
 
 # -fmad=false: no FMA contraction, so every product and sum rounds as in the
-# plain PyTorch versions (integer decisions of K1/K2 must agree exactly; K3's
-# coverage test is a threshold too). No fast math: IEEE division, sqrtf and
+# plain PyTorch versions (integer decisions of K1/K2 must agree exactly; the
+# coverage test of K3 and K4 is a threshold too). No fast math: IEEE division, sqrtf and
 # expf are kept.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

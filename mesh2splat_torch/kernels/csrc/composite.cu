@@ -20,68 +20,20 @@
 // pixels of the tile (padding pixels included), with __syncthreads_or, which
 // is where the Pallas kernel tests it. The TPU's bf16x3 MXU accumulation and
 // its (8, 128) field-major DMA windows are not carried over.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int TILE = 32;
-constexpr int NPX = TILE * TILE;
-constexpr int THREADS = 256;
-constexpr int PPT = NPX / THREADS;  // pixels per thread
-constexpr int CHUNK = 128;
-constexpr int NUM_CH = 16;
+using namespace m2s_comp;
 
-// pair-field rows (render/binning.py VARIANT_FIELDS)
+// per-pair terms staged in shared memory after the plane coefficients
 enum {
-  F_MEAN_X = 0, F_MEAN_Y, F_CONIC_A, F_CONIC_B, F_CONIC_C,
-  F_COL_R, F_COL_G, F_COL_B, F_ALPHA,
-  F_NRM_X, F_NRM_Y, F_NRM_Z, F_WS_X, F_WS_Y, F_WS_Z,
-  F_DEPTH, F_METAL, F_ROUGH
-};
-
-// per-pair terms staged in shared memory
-enum {
-  S_PW0 = 0, S_PW1, S_PW2, S_PW3, S_PW4, S_PW5,
-  S_U0, S_U1, S_U2, S_V0, S_V1, S_V2,
-  S_ALPHA, S_R, S_G, S_B,
+  S_ALPHA = S_PLANES_END, S_R, S_G, S_B,
   S_ALBEDO_END,
   S_NX = S_ALBEDO_END, S_NY, S_NZ, S_DEPTH, S_WX, S_WY, S_WZ, S_METAL,
   S_ROUGH,
   S_FULL_END
 };
-
-// ops/projection.py axes_from_conic, operation for operation
-__device__ __forceinline__ void axes_from_conic(float ca, float cb, float cc,
-                                                float& mjx, float& mjy,
-                                                float& mnx, float& mny) {
-  float det_c = ca * cc - cb * cb;
-  bool ok = det_c > 1e-30f;
-  float dsafe = ok ? det_c : 1.0f;
-  float a = cc / dsafe;
-  float b = -cb / dsafe;
-  float c = ca / dsafe;
-  float mid = a + c;
-  float amc = a - c;
-  float b2 = 2.0f * b;
-  float delta = sqrtf(amc * amc + b2 * b2);
-  float lam1 = 0.5f * (mid + delta);
-  float lam2 = 0.5f * (mid - delta);
-  float dv_den = b - c + lam1;
-  dv_den = fabsf(dv_den) < 1e-12f ? 1e-12f : dv_den;
-  float dvy = (-a + b + lam1) / dv_den;
-  float rinv = 1.0f / sqrtf(1.0f + dvy * dvy + 1e-24f);
-  float dvx = rinv;
-  dvy = dvy * rinv;
-  float len1 = fminf(3.0f * sqrtf(fmaxf(lam1, 0.0f)), 1024.0f);
-  float len2 = fminf(3.0f * sqrtf(fmaxf(lam2, 0.0f)), 1024.0f);
-  len1 = ok ? len1 : 0.0f;
-  len2 = ok ? len2 : 0.0f;
-  mjx = len1 * dvx;
-  mjy = len1 * dvy;
-  mnx = len2 * dvy;
-  mny = -len2 * dvx;
-}
 
 template <bool ALBEDO>
 __global__ void __launch_bounds__(THREADS)
@@ -133,27 +85,8 @@ composite_kernel(const float* __restrict__ fields, int64_t p,
       slive[r] = live;
       if (live) {
         auto fld = [&](int f) { return __ldg(fields + (int64_t)f * p + row); };
-        float ca = fld(F_CONIC_A), cb = fld(F_CONIC_B), cc = fld(F_CONIC_C);
-        float mxp = fld(F_MEAN_X) - tjf;
-        float myp = fld(F_MEAN_Y) - py0;
-        float mjx, mjy, mnx, mny;
-        axes_from_conic(ca, cb, cc, mjx, mjy, mnx, mny);
-        float det = mjx * mny - mnx * mjy;
-        det = fabsf(det) < 1e-12f ? 1e-12f : det;
-        float rdet = 1.0f / det;
-        sp[S_PW0][r] = -(0.5f * ca * mxp * mxp + cb * mxp * myp +
-                         0.5f * cc * myp * myp);
-        sp[S_PW1][r] = ca * mxp + cb * myp;
-        sp[S_PW2][r] = -(cb * mxp + cc * myp);
-        sp[S_PW3][r] = -0.5f * ca;
-        sp[S_PW4][r] = cb;
-        sp[S_PW5][r] = -0.5f * cc;
-        sp[S_U0][r] = rdet * (mnx * myp - mny * mxp);
-        sp[S_U1][r] = rdet * mny;
-        sp[S_U2][r] = rdet * mnx;
-        sp[S_V0][r] = rdet * (mxp * mjy - mjx * myp);
-        sp[S_V1][r] = -rdet * mjy;
-        sp[S_V2][r] = -rdet * mjx;
+        stage_planes(sp, r, fld(F_CONIC_A), fld(F_CONIC_B), fld(F_CONIC_C),
+                     fld(F_MEAN_X) - tjf, fld(F_MEAN_Y) - py0);
         sp[S_ALPHA][r] = fld(F_ALPHA);
         sp[S_R][r] = fld(F_COL_R);
         sp[S_G][r] = fld(F_COL_G);
@@ -186,13 +119,8 @@ composite_kernel(const float* __restrict__ fields, int64_t p,
       if (!slive[r]) continue;
 #pragma unroll
       for (int q = 0; q < PPT; ++q) {
-        float pw = sp[S_PW0][r] + sp[S_PW1][r] * xs[q] + sp[S_PW2][r] * ys[q] +
-                   sp[S_PW3][r] * xx[q] + sp[S_PW4][r] * xy[q] +
-                   sp[S_PW5][r] * yy[q];
-        float u = sp[S_U0][r] + sp[S_U1][r] * xs[q] + sp[S_U2][r] * ys[q];
-        float v = sp[S_V0][r] + sp[S_V1][r] * xs[q] + sp[S_V2][r] * ys[q];
-        if (!(fmaxf(fabsf(u), fabsf(v)) <= 1.0f)) continue;  // g == 0
-        float g = expf(fminf(pw, 0.0f));
+        float g;
+        if (!falloff(sp, r, xs[q], ys[q], xx[q], xy[q], yy[q], g)) continue;
         float agr = sp[S_ALPHA][r] * g;
         float ag = fminf(agr, 0.9999f);
         float e_a = cum_a[q] * ta[q];

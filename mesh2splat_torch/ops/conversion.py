@@ -10,6 +10,10 @@
   4. The fragment shader (ops.fragment): K1 texel rows, one texture gather,
      K2 fragment math.
 
+``convert`` is differentiable with respect to the material (textures and
+factors) and the mesh attributes: the f32 tap atlas, the tap gather and the
+fragment VJP carry the gradient; the slot allocation is integer.
+
 Slot order equals the JAX package's, so splats compare element by element.
 """
 
@@ -392,13 +396,13 @@ def _convert_core(mesh, bbox_min, bbox_max, config, stack, mids, factors,
     return splats, _overflow_stats(ex, config)
 
 
-@torch.no_grad()
 def convert(mesh: TriangleMesh, material: Material, bbox_min, bbox_max,
             config: ConversionConfig, ortho_uv=None, return_stats=False,
             atlas: PackedAtlas | None = None):
     """Convert one primitive (triangle soup + material) to splats on the
     mesh tensors' device. bbox_min/max: the per-mesh bbox used for ortho-UV
-    normalization. atlas: optional pack_atlas(material) result."""
+    normalization. atlas: optional pack_atlas(material) result (a packed
+    atlas is a constant: no gradient reaches the textures through it)."""
     return _convert_core(
         mesh, bbox_min, bbox_max, config,
         stack=None if atlas is not None else _material_stack(material),

@@ -13,6 +13,12 @@ column, coverage, tap index), both fuse a multiply-add exactly where the
 reference's arithmetic does (``numerics.fma`` here, ``fmaf`` in the kernels,
 which otherwise build without FMA contraction), so the two agree bit for bit
 with each other and with the reference.
+
+``fragment_apply`` is differentiable with respect to the records (the mesh
+attributes) and f32 taps (the textures, through the tap gather): its
+backward recomputes the plain math under autograd on the gathered records
+and taps, as the JAX package's VJP differentiates ``_fragment_math`` in
+XLA. Packed (bf16-pair) taps get no gradient.
 """
 
 from __future__ import annotations
@@ -368,18 +374,52 @@ def fragment_apply_plain(records, tapsT, metaT, *, res, geom, k, has_base,
     )
 
 
+class _FragmentApply(torch.autograd.Function):
+    """K2 forward (the kernel on a CUDA tensor, the plain version on a CPU
+    tensor); backward = the VJP of ``_fragment_math``."""
+
+    @staticmethod
+    def forward(ctx, records, tapsT, metaT, kw):
+        if records.is_cuda:
+            out = kernels.fragment_apply(records, tapsT, metaT, **kw)
+        else:
+            out = fragment_apply_plain(records, tapsT, metaT, **kw)
+        ctx.save_for_backward(records, tapsT, metaT)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        records, tapsT, metaT = ctx.saved_tensors
+        kw = dict(ctx.kw)
+        packed = kw.pop("taps_packed")
+        has_stack = kw["has_base"] or kw["has_normal"] or kw["has_mr"]
+        want_taps = has_stack and not packed and ctx.needs_input_grad[1]
+        with torch.enable_grad():
+            rec = records.detach().requires_grad_(ctx.needs_input_grad[0])
+            taps = None
+            if has_stack:
+                taps = (_unpack_taps(tapsT) if packed
+                        else tapsT.detach().requires_grad_(want_taps))
+            out = _fragment_math(_gather_rec(rec, metaT), taps, metaT, **kw)
+            inputs = [t for t, need in ((rec, ctx.needs_input_grad[0]),
+                                        (taps, want_taps)) if need]
+            grads = iter(torch.autograd.grad(out, inputs, g_out,
+                                             allow_unused=True)
+                         if inputs else ())
+        d_rec = next(grads) if ctx.needs_input_grad[0] else None
+        d_taps = next(grads) if want_taps else None
+        return d_rec, d_taps, None, None
+
+
 def fragment_apply(records, tapsT, metaT, res, geom, k,
                    has_base, has_normal, has_mr, taps_packed=False):
-    """K2 (forward only): the fragment shader over all slots. records
-    (REC_W, T_pad) f32; tapsT (k*4*TAPS_C, cap) f32, or
-    (k*4*TAPS_C/2, cap) int32 bf16 pairs when taps_packed, or a dummy
-    (1, cap) when the material has no texture; metaT (4, cap) f32.
-    Returns ((OUT_W, cap) f32, (1, cap) f32 local). A CUDA tensor launches
-    the kernel, a CPU tensor takes the plain version."""
+    """K2: the fragment shader over all slots. records (REC_W, T_pad) f32;
+    tapsT (k*4*TAPS_C, cap) f32, or (k*4*TAPS_C/2, cap) int32 bf16 pairs
+    when taps_packed, or a dummy (1, cap) when the material has no texture;
+    metaT (4, cap) f32. Returns ((OUT_W, cap) f32, (1, cap) f32 local). A
+    CUDA tensor launches the kernel, a CPU tensor takes the plain version;
+    either way the gradient flows to records and f32 taps."""
     kw = dict(res=res, geom=geom, k=k, has_base=has_base,
               has_normal=has_normal, has_mr=has_mr, taps_packed=taps_packed)
-    if records.is_cuda:
-        out = kernels.fragment_apply(records, tapsT, metaT, **kw)
-    else:
-        out = fragment_apply_plain(records, tapsT, metaT, **kw)
-    return out, metaT[2:3]
+    return _FragmentApply.apply(records, tapsT, metaT, kw), metaT[2:3]

@@ -18,6 +18,10 @@ hardware fma does.
 vectorised path is off by an ulp for some inputs), while XLA's and CUDA's
 ``sqrtf`` are; ``sqrt`` takes the root in float64 and rounds once more,
 which is exact for float32 inputs.
+
+Both are differentiable: ``fma`` is an autograd Function whose backward is
+that of ``a * b + c`` (the bit-level view of its forward has no gradient of
+its own), and ``sqrt`` differentiates through its float64 cast.
 """
 
 from __future__ import annotations
@@ -34,9 +38,7 @@ def _f64(x, like):
                         device=like.device)
 
 
-def fma(a, b, c):
-    """round_f32(a * b + c) with a single rounding; at least one argument
-    must be a float32 tensor, the others may be Python numbers."""
+def _fma_f32(a, b, c):
     like = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
     a, b, c = _f64(a, like), _f64(b, like), _f64(c, like)
     p = a * b                      # exact: 24 + 24 bits < 53
@@ -49,6 +51,38 @@ def fma(a, b, c):
     fix = (err != 0) & ((bits & 1) == 0)
     bits = torch.where(fix, bits + step, bits)
     return bits.view(torch.float64).to(torch.float32)
+
+
+class _Fma(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c):
+        # a Python number stays in ctx as itself; a tensor's shape is kept
+        # to reduce its broadcast gradient back onto it
+        ctx.scalars = tuple(None if isinstance(x, torch.Tensor) else x
+                            for x in (a, b))
+        ctx.shapes = tuple(x.shape if isinstance(x, torch.Tensor) else None
+                           for x in (a, b, c))
+        ctx.save_for_backward(*[x for x in (a, b)
+                                if isinstance(x, torch.Tensor)])
+        return _fma_f32(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = iter(ctx.saved_tensors)
+        a, b = (next(saved) if s is None else s for s in ctx.scalars)
+        grads = (g * b, g * a, g)
+        return tuple(
+            (gi.sum_to_size(shape) if gi.shape != shape else gi)
+            if need else None
+            for gi, shape, need in zip(grads, ctx.shapes,
+                                       ctx.needs_input_grad))
+
+
+def fma(a, b, c):
+    """round_f32(a * b + c) with a single rounding; at least one argument
+    must be a float32 tensor, the others may be Python numbers. Its gradient
+    is that of ``a * b + c``."""
+    return _Fma.apply(a, b, c)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -74,7 +74,6 @@ def _hash_random2d(co):
     return torch.remainder(torch.sin(sn) * 43758.5453, 1.0)
 
 
-@torch.no_grad()
 def project_splats(
     splats: Splats,
     camera: Camera,
@@ -85,7 +84,9 @@ def project_splats(
     model_to_world: torch.Tensor | None = None,
     depth_map: torch.Tensor | None = None,
 ) -> ProjectedSplats:
-    """Project all splats to screen space on the splats' device."""
+    """Project all splats to screen space on the splats' device.
+    Differentiable with respect to the splats' pos, color, scale, quat,
+    normal and pbr; the camera's entries enter as Python floats."""
     if depth_map is not None:
         raise NotImplementedError(
             "mesh-occlusion culling (depth_map) needs the mesh rasterizer, "

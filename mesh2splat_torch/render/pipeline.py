@@ -4,7 +4,8 @@ immutable FrameConfig.
 
 Options of the JAX package that need modules this port does not have yet
 raise NotImplementedError naming their slice: shadows in FINAL mode (kernel
-K5), the mesh depth prepass (mesh raster) and the dense rasterizer.
+K5) and the mesh depth prepass (mesh raster). ``use_tiled=False`` takes the
+dense rasterizer.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from ..ops.projection import project_splats
 from ..types import Camera, Material, RenderMode, SplatFormat, Splats, TriangleMesh
 from .binning import required_overflow, round_pow2_budget
 from .lighting import PointLight, deferred_resolve
+from .rasterize import rasterize_dense
 from .tiled import rasterize_tiled
 
 
@@ -43,11 +45,6 @@ class FrameConfig:
 
 
 def _check_supported(config: FrameConfig):
-    if not config.use_tiled:
-        raise NotImplementedError(
-            "use_tiled=False needs the dense rasterizer, which the port "
-            "brings in its mesh-raster/dense-rasterizer slice"
-        )
     if config.depth_test_mesh:
         raise NotImplementedError(
             "depth_test_mesh needs the mesh rasterizer, which the port "
@@ -73,6 +70,10 @@ def render_gbuffer(splats: Splats, camera: Camera, config: FrameConfig,
     """Prepass + bin + composite -> splat G-buffer dict."""
     _check_supported(config)
     proj = _project(splats, camera, config, model_to_world)
+    if not config.use_tiled:
+        return rasterize_dense(proj, config.width, config.height,
+                               render_mode=config.render_mode,
+                               device=splats.device)
     return rasterize_tiled(proj, config.width, config.height,
                            render_mode=config.render_mode,
                            pair_capacity=config.pair_capacity)
@@ -108,7 +109,7 @@ def render_frame(splats: Splats, camera: Camera, config: FrameConfig,
     """Full frame to an (H, W, 3) image on the splats' device."""
     _check_supported(config)
     light = light or PointLight.default(splats.device)
-    if config.pair_capacity == 0:
+    if config.use_tiled and config.pair_capacity == 0:
         config = calibrate_frame(splats, camera, config,
                                  model_to_world=model_to_world)
     return _frame_core(splats, camera, light, config,

@@ -1,5 +1,6 @@
 """Tile-binned rasterizer (counterpart of ``mesh2splat_tpu.render.tiled``):
-projection output -> binning -> compositing, returning the G-buffer dict."""
+projection output -> binning -> compositing, returning the G-buffer dict.
+Differentiable with respect to the projected splats."""
 
 from __future__ import annotations
 
@@ -11,7 +12,6 @@ from . import binning as B
 from . import composite as C
 
 
-@torch.no_grad()
 def rasterize_tiled(proj: ProjectedSplats, width: int, height: int,
                     pair_capacity: int = 0,
                     render_mode: RenderMode = RenderMode.ALBEDO,

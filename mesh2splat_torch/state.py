@@ -69,6 +69,36 @@ def projected(src, device="cuda") -> ProjectedSplats:
     return from_numpy(ProjectedSplats, src, device)
 
 
+def cameras(src, device="cuda") -> list:
+    """A camera batch stacked over views (the JAX package's batched camera
+    pytree: (V, 4, 4) matrices, (V,) near and far, one width and height)
+    -> one port Camera per view."""
+    vals = _fields(src)
+    w2v = np.asarray(vals["world_to_view"])
+    near, far = np.asarray(vals["near"]), np.asarray(vals["far"])
+    return [camera(dict(world_to_view=w2v[i],
+                        view_to_clip=np.asarray(vals["view_to_clip"])[i],
+                        near=near[i], far=far[i], width=vals["width"],
+                        height=vals["height"]), device)
+            for i in range(w2v.shape[0])]
+
+
+def splat_params(src, device="cuda"):
+    """The JAX package's SplatParams (or a dict of its fields) -> the port's
+    SplatParams of leaf tensors that require grad."""
+    from .train.fit import SplatParams
+
+    sp = from_numpy(SplatParams, src, device)
+    return SplatParams(**{k: v.requires_grad_(True)
+                          for k, v in sp.as_dict().items()})
+
+
+def params_to_numpy(params) -> dict:
+    """SplatParams (or any dataclass of tensors) on the host."""
+    return {f.name: getattr(params, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(params)}
+
+
 def splats_to_numpy(sp: Splats) -> dict:
     """All capacity rows of every field, on the host."""
     return {f.name: getattr(sp, f.name).detach().cpu().numpy()

@@ -34,6 +34,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def to_device(obj, device):
+    """A copy of the dataclass ``obj`` with every tensor field on
+    ``device`` (fields already there are kept as they are)."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
 class SplatFormat(enum.IntEnum):
     MESH2SPLAT = 0      # freshly converted: raw scale, needs *sigma at use
     PLY_3DGS = 1        # imported classic 3DGS PLY: scale already in real units
@@ -196,7 +205,7 @@ def perspective(fov_y_rad, aspect, near, far) -> np.ndarray:
 
 
 def compose_trs(translation=(0, 0, 0), rotation_wxyz=(1, 0, 0, 0),
-                scale=(1, 1, 1), device="cpu") -> torch.Tensor:
+                scale=(1, 1, 1), device="cuda") -> torch.Tensor:
     """4x4 model-to-world matrix from translate/rotate/scale, quaternion in
     (w, x, y, z)."""
     dev = resolve_device(device)

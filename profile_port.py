@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where mesh2splat_torch's time goes on a CUDA card: torch.profiler over
 chip_smoke.py's full-size workload (20k-triangle sphere, resolution 512,
-1080p ALBEDO render), after a warm-up.
+1080p ALBEDO render, one fit_splats step over 2 views at 1080p), after a
+warm-up.
 
     python3 profile_port.py [--rows 15]
 
-Prints, for `Scene.convert` and for `Scene.render` separately, the host
-wall time of the profiled call, the summed device time, and the device ops
-with the most device time. Needs a card.
+Prints, for `Scene.convert`, `Scene.render` and the training step
+separately, the host wall time of the profiled call, the summed device
+time, and the device ops with the most device time. Needs a card.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    from mesh2splat_torch.types import RenderMode
+    from mesh2splat_torch.types import RenderMode, SplatFormat
 
     scene = cs.make_scene(cs.synth_primitive(), torch.device("cuda"))
     sp = scene.convert(resolution=512, layers=6)
@@ -73,6 +74,25 @@ def main():
             lambda: scene.render(sp, eye=cs.EYE, width=cs.W_PX,
                                  height=cs.H_PX, fov_deg=60.0,
                                  mode=RenderMode.ALBEDO), args.rows)
+
+    from mesh2splat_torch.ops.projection import project_splats
+    from mesh2splat_torch.render import binning as TB
+    from mesh2splat_torch.train import fit as TFIT
+
+    mult = scene.last_config.scale_multiplier
+    cams, targets, start = cs.training_inputs(torch, TFIT, sp, mult,
+                                              torch.device("cuda"))
+    with torch.no_grad():
+        need = max(int(TB.required_overflow(
+            project_splats(start, c, splat_format=SplatFormat.PLY_3DGS),
+            cs.W_PX, cs.H_PX)) for c in cams)
+    params = TFIT.SplatParams.from_splats(start)
+    opt = torch.optim.Adam(params.parameters(), lr=cs.FIT_LR,
+                           betas=TFIT.ADAM_BETAS, eps=TFIT.ADAM_EPS)
+    step = TFIT.train_step_fn(opt, cs.W_PX, cs.H_PX,
+                              pair_capacity=TB.round_pow2_budget(need))
+    profile(f"fit_splats step (2 views at {cs.W_PX}x{cs.H_PX})",
+            lambda: step(params, start.valid, cams, targets), args.rows)
 
 
 if __name__ == "__main__":

@@ -58,7 +58,7 @@ def test_exponential_depth_and_camera_match():
                                   np.asarray(jc.view_to_clip))
     assert (tc.near, tc.far) == (float(jc.near), float(jc.far))
     trs = ((0.1, -0.2, 0.3), (0.9, 0.1, 0.3, -0.2), (1.5, 0.5, 2.0))
-    np.testing.assert_allclose(TT.compose_trs(*trs).numpy(),
+    np.testing.assert_allclose(TT.compose_trs(*trs, device="cpu").numpy(),
                                np.asarray(JT.compose_trs(*trs)), atol=1e-6)
 
 
@@ -180,13 +180,15 @@ import mesh2splat_torch
 for m in pkgutil.walk_packages(mesh2splat_torch.__path__, "mesh2splat_torch."):
     importlib.import_module(m.name)
 assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
+for name in ("train.fit", "utils.checkpoint", "render.rasterize"):
+    assert "mesh2splat_torch." + name in sys.modules, name
 print("ok")
 """
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax and the JAX package
-    blocked."""
+    """Every module of the port, train/ and utils/ included, imports with
+    jax and the JAX package blocked."""
     out = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                          text=True, check=True)
     assert out.stdout.strip().endswith("ok")
@@ -197,9 +199,22 @@ def test_cuda_requested_without_card_raises(monkeypatch, tmp_path):
     never moves to the CPU silently."""
     from mesh2splat_torch.scene import Scene
 
+    from mesh2splat_torch.render.rasterize import rasterize_dense
+    from mesh2splat_torch.train import fit
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         TT.make_camera(eye=[0, 0, 3], center=[0, 0, 0], up=[0, 1, 0],
                        fov_y_rad=1.0, width=8, height=8)
     with pytest.raises(RuntimeError, match="cuda"):
         Scene.from_glb(str(tmp_path / "absent.glb"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        TT.compose_trs()
+    # the training entry points and the dense rasterizer check the device
+    # before they touch their inputs
+    for call in (lambda: fit.fit_splats(None, [], None, fit.FitConfig()),
+                 lambda: fit.fit_textures(None, None, None, [], None,
+                                          fit.FitTexturesConfig()),
+                 lambda: rasterize_dense(None, 8, 8)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()

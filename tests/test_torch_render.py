@@ -166,20 +166,28 @@ def test_deferred_resolve_matches(mode):
 
 
 def test_unported_options_raise():
+    """K5, K6 and the mesh raster still raise; the dense rasterizer
+    (use_tiled=False) and the composite's gradient (K4) now run."""
     from mesh2splat_torch.render.pipeline import FrameConfig, render_frame
     from mesh2splat_torch.render.tiled import rasterize_tiled
 
     sp = state.splats(random_splats(20), "cpu")
     cam = state.camera(j_camera(**CAM), "cpu")
     for cfg, what in ((FrameConfig(W, H, TRM.FINAL, shadows=True), "K5"),
-                      (FrameConfig(W, H, depth_test_mesh=True), "mesh"),
-                      (FrameConfig(W, H, use_tiled=False), "dense")):
+                      (FrameConfig(W, H, depth_test_mesh=True), "mesh")):
         with pytest.raises(NotImplementedError, match=what):
             render_frame(sp, cam, cfg)
+    dense = render_frame(sp, cam, FrameConfig(W, H, use_tiled=False))
+    tiled = render_frame(sp, cam, FrameConfig(W, H))
+    assert dense.shape == (H, W, 3) and float(dense.max()) > 0.05
+    # the tiled path against its ground truth (tests/test_tiled.py's 5e-3)
+    assert float((dense - tiled).abs().max()) <= 5e-3
     proj = t_project(sp, cam)
     with pytest.raises(NotImplementedError, match="K6"):
         rasterize_tiled(proj, W, H, render_mode=TRM.OVERDRAW)
-    fields = torch.zeros((24, 128), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K4"):
-        TCOMP.composite_tiles(fields, torch.zeros(9, dtype=torch.int32), H,
-                              2, 4)
+    # no pair in any tile: the K4 plain path returns an all-zero gradient
+    fields = torch.ones((24, 128), requires_grad=True)
+    out = TCOMP.composite_tiles(fields, torch.zeros(9, dtype=torch.int32), H,
+                                2, 4)
+    out.sum().backward()
+    assert fields.grad.shape == (24, 128) and not fields.grad.any()
