@@ -65,7 +65,7 @@ _SIGNATURES = {
     "composite": ("m2s_composite_forward",
                   [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P]),
     "composite_bwd": ("m2s_composite_backward",
-                      [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+                      [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
 }
 _fns: dict = {}
 
@@ -171,13 +171,11 @@ def composite_forward(fields, tile_starts, *, height, ty, tx, albedo_only,
 
 
 def composite_backward(fields, tile_starts, ct, res, *, height, ty, tx,
-                       albedo_only, covered=None):
+                       albedo_only):
     """K4: dfields (F_pad, P) f32, the VJP of composite_forward. ct is the
     (16, ty*32, tx*32) cotangent of its output, res the (2, ty*32, tx*32)
     per-pixel totals res_a, res_g (render/composite.py backward_totals).
-    Rows outside every tile's range come back zero. ``covered``, if given,
-    is a (ty*tx,) int32 tensor that receives each tile's count of covered
-    (pair, pixel) combinations."""
+    Rows outside every tile's range come back zero."""
     _check(fields, "fields", torch.float32, 2, rows=16 if albedo_only else 24)
     dev = fields.device
     _check(tile_starts, "tile_starts", torch.int32, 1, dev, rows=ty * tx + 1)
@@ -188,14 +186,11 @@ def composite_backward(fields, tile_starts, ct, res, *, height, ty, tx,
         if tuple(t.shape[1:]) != img:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                              f"(*, {img[0]}, {img[1]})")
-    if covered is not None:
-        _check(covered, "covered", torch.int32, 1, dev, rows=ty * tx)
     dfields = torch.zeros_like(fields)
     err = _fn("composite_bwd")(
         fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(), ty, tx,
         height, int(albedo_only), ct.data_ptr(), res.data_ptr(),
-        dfields.data_ptr(),
-        covered.data_ptr() if covered is not None else None, _stream(dev))
+        dfields.data_ptr(), _stream(dev))
     _raise_on(err, "composite_backward")
     launches["composite_bwd_albedo" if albedo_only else
              "composite_bwd_full"] += 1

@@ -70,15 +70,13 @@ composite_bwd_kernel(const float* __restrict__ fields, int64_t p,
                      const int32_t* __restrict__ tile_starts, int tx,
                      float height, const float* __restrict__ ct,
                      const float* __restrict__ res,
-                     float* __restrict__ dfields,
-                     int32_t* __restrict__ covered) {
+                     float* __restrict__ dfields) {
   constexpr int NS = ALBEDO ? S_ALBEDO_END : S_FULL_END;
   constexpr int NV = ALBEDO ? V_ALBEDO_END : V_FULL_END;
   __shared__ float sp[NS][CHUNK];
   __shared__ unsigned char slive[CHUNK];
   __shared__ float part[SUB][WARPS][NV];
   __shared__ float red[SUB][NV];
-  __shared__ int scount;
 
   const int tile = blockIdx.x;
   const int ti = tile / tx;
@@ -101,7 +99,6 @@ composite_bwd_kernel(const float* __restrict__ fields, int64_t p,
   float c_rgba[PPT][4], c_n[PPT][4], c_g[PPT][6];
   float res_a[PPT], res_g[PPT];
   float ta[PPT], tg[PPT], bpa[PPT], bpg[PPT];
-  int ncov = 0;
 #pragma unroll
   for (int q = 0; q < PPT; ++q) {
     const int row = warp * PPT + q;
@@ -193,7 +190,6 @@ composite_bwd_kernel(const float* __restrict__ fields, int64_t p,
             float g;
             if (!falloff(sp, r, xs[q], ys[q], xx, xy, yy, g)) continue;
             any = true;
-            ++ncov;
             const float agr = alpha * g;
             const float ag = fminf(agr, 0.9999f);
             const float e_a = cum_a[q] * ta[q];
@@ -327,14 +323,6 @@ composite_bwd_kernel(const float* __restrict__ fields, int64_t p,
     // the chain above reads this chunk's stage: wait before restaging
     __syncthreads();
   }
-
-  if (covered != nullptr) {
-    if (threadIdx.x == 0) scount = 0;
-    __syncthreads();
-    atomicAdd(&scount, ncov);
-    __syncthreads();
-    if (threadIdx.x == 0) covered[tile] = scount;
-  }
 }
 
 }  // namespace
@@ -343,19 +331,16 @@ extern "C" int m2s_composite_backward(const float* fields, int64_t p,
                                       const int32_t* tile_starts, int ty,
                                       int tx, int height, int albedo_only,
                                       const float* ct, const float* res,
-                                      float* dfields, int32_t* covered,
-                                      void* stream) {
+                                      float* dfields, void* stream) {
   const int tiles = ty * tx;
   if (tiles > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     if (albedo_only) {
       composite_bwd_kernel<true><<<tiles, THREADS, 0, s>>>(
-          fields, p, tile_starts, tx, (float)height, ct, res, dfields,
-          covered);
+          fields, p, tile_starts, tx, (float)height, ct, res, dfields);
     } else {
       composite_bwd_kernel<false><<<tiles, THREADS, 0, s>>>(
-          fields, p, tile_starts, tx, (float)height, ct, res, dfields,
-          covered);
+          fields, p, tile_starts, tx, (float)height, ct, res, dfields);
     }
   }
   return (int)cudaGetLastError();

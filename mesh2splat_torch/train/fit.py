@@ -150,6 +150,20 @@ def train_step_fn(optimizer, width, height, std_dev=1.0, use_tiled=True,
     return step
 
 
+@torch.no_grad()
+def pair_budget(splats: Splats, cameras, width, height) -> int:
+    """The class-C pair budget of ``l2_loss``'s renders: the worst view's
+    need, projected in the format the loss renders (PLY_3DGS, where std_dev
+    has no effect), rounded up to a power of two; one host read."""
+    need = torch.stack([
+        required_overflow(project_splats(splats, cam,
+                                         render_mode=RenderMode.ALBEDO,
+                                         splat_format=SplatFormat.PLY_3DGS),
+                          width, height)
+        for cam in cameras]).max()
+    return round_pow2_budget(int(need))
+
+
 def fit_splats(splats: Splats, cameras, targets, config: FitConfig,
                devices_mesh=None, device="cuda"):
     """Adam refinement of splat params against (V, H, W, 3) targets, one
@@ -163,18 +177,8 @@ def fit_splats(splats: Splats, cameras, targets, config: FitConfig,
     valid = splats.valid
     opt = _adam(params.parameters(), config.lr)
 
-    pair_cap = 0
-    if config.use_tiled:
-        # size the class-C budget to the worst view, one host read
-        with torch.no_grad():
-            need = torch.stack([
-                required_overflow(
-                    project_splats(splats, cam, std_dev=config.std_dev,
-                                   render_mode=RenderMode.ALBEDO),
-                    config.width, config.height)
-                for cam in cameras]).max()
-        pair_cap = round_pow2_budget(int(need))
-
+    pair_cap = (pair_budget(splats, cameras, config.width, config.height)
+                if config.use_tiled else 0)
     step = train_step_fn(opt, config.width, config.height,
                          std_dev=config.std_dev, use_tiled=config.use_tiled,
                          pair_capacity=pair_cap)

@@ -64,7 +64,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    from mesh2splat_torch.types import RenderMode, SplatFormat
+    from mesh2splat_torch.types import RenderMode
 
     scene = cs.make_scene(cs.synth_primitive(), torch.device("cuda"))
     sp = scene.convert(resolution=512, layers=6)
@@ -75,22 +75,17 @@ def main():
                                  height=cs.H_PX, fov_deg=60.0,
                                  mode=RenderMode.ALBEDO), args.rows)
 
-    from mesh2splat_torch.ops.projection import project_splats
-    from mesh2splat_torch.render import binning as TB
     from mesh2splat_torch.train import fit as TFIT
 
     mult = scene.last_config.scale_multiplier
     cams, targets, start = cs.training_inputs(torch, TFIT, sp, mult,
                                               torch.device("cuda"))
-    with torch.no_grad():
-        need = max(int(TB.required_overflow(
-            project_splats(start, c, splat_format=SplatFormat.PLY_3DGS),
-            cs.W_PX, cs.H_PX)) for c in cams)
     params = TFIT.SplatParams.from_splats(start)
     opt = torch.optim.Adam(params.parameters(), lr=cs.FIT_LR,
                            betas=TFIT.ADAM_BETAS, eps=TFIT.ADAM_EPS)
-    step = TFIT.train_step_fn(opt, cs.W_PX, cs.H_PX,
-                              pair_capacity=TB.round_pow2_budget(need))
+    step = TFIT.train_step_fn(
+        opt, cs.W_PX, cs.H_PX,
+        pair_capacity=TFIT.pair_budget(start, cams, cs.W_PX, cs.H_PX))
     profile(f"fit_splats step (2 views at {cs.W_PX}x{cs.H_PX})",
             lambda: step(params, start.valid, cams, targets), args.rows)
 

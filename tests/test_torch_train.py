@@ -36,8 +36,12 @@ from mesh2splat_tpu.types import make_camera as j_camera
 
 from mesh2splat_torch import state
 from mesh2splat_torch.ops import conversion as TC
+from mesh2splat_torch.ops.projection import project_splats
+from mesh2splat_torch.render.binning import required_overflow
+from mesh2splat_torch.render.tiled import rasterize_tiled
 from mesh2splat_torch.train import fit as TFIT
 from mesh2splat_torch.types import SplatFormat as TSF
+from mesh2splat_torch.types import make_camera
 from mesh2splat_torch.utils import checkpoint
 from test_torch_backward import random_splats
 from torch_parity import host
@@ -174,6 +178,27 @@ def test_fit_splats_history_matches_jax():
                               TFIT.FitConfig(**fit_cfg), device="cpu")
     assert hist[-1] < 0.5 * hist[0]
     np.testing.assert_allclose(hist, ref, rtol=1e-4)
+
+
+def test_fit_splats_budget_covers_the_loss_render():
+    """fit_splats' class-C pair budget comes from the projection l2_loss
+    renders (PLY_3DGS, where std_dev has no effect): it covers each view's
+    need and the render at that budget drops no pair. A budget projected
+    with std_dev = 1/64 in MESH2SPLAT, as the JAX fit_splats sizes it,
+    falls short of the same need."""
+    sp = state.splats(random_splats(2000, seed=5), "cpu")
+    cams = [make_camera(eye, [0, 0, 0], [0, 1, 0], np.pi / 3, 256, 256,
+                        device="cpu") for eye in ([0, 0, 4], [0.8, 0.4, 3.5])]
+    budget = TFIT.pair_budget(sp, cams, 256, 256)
+    need = [int(required_overflow(project_splats(
+        sp, c, splat_format=TSF.PLY_3DGS), 256, 256)) for c in cams]
+    small = [int(required_overflow(project_splats(sp, c, std_dev=1 / 64),
+                                   256, 256)) for c in cams]
+    assert max(small) < max(need) <= budget
+    out = rasterize_tiled(project_splats(sp, cams[1],
+                                         splat_format=TSF.PLY_3DGS),
+                          256, 256, albedo_only=True, pair_capacity=budget)
+    assert int(out["dropped_pairs"]) == 0
 
 
 def _two_tone():
