@@ -16,15 +16,19 @@ without a card:
      2 views at 1920x1080, the 1,534,657 splats), fit_textures (the sphere at
      resolution 512, two 512x512 views, 2 steps), bench.py's 1080p gradient
      and the five-target G-buffer loss's gradient (the full composite
-     backward); the kernels' launch counters are zeroed before each path and
-     read after it, and every training render must drop no class-C pair;
+     backward); then the render paths at full size: bench.py's 1024^2
+     shadow cubemap, the 1920x1080 FINAL frame with shadows, the OVERDRAW
+     frame, the frame with the mesh depth prepass and the split-screen
+     compare; the kernels' launch counters are zeroed before each path and
+     read after it, and no render may drop a class-C pair;
   4. each kernel against its plain PyTorch version on the same CUDA tensors,
      at the shapes of phase 3;
   5. the whole slice on the card against the same code on the CPU, small:
      conversion and render, one fit_splats loss and gradient, one
-     fit_textures gradient;
+     fit_textures gradient, the tiled cubemap at 128^2, the FINAL frame
+     with shadows, the OVERDRAW, depth-tested and split-screen frames;
   6. kernel times (CUDA events) beside the plain versions and the bound,
-     and the training step's time.
+     the training step's time and the render paths' times.
 It ends with a JSON line of kernel numbers, the card's name and power limit,
 and {"ok": true, "device": {...}} as the last line.
 """
@@ -52,6 +56,8 @@ TEX_STEPS = 2
 TEX_PX = 512                  # fit_textures' views
 MAIN_KERNELS = ("texel_rows", "fragment_apply", "composite_full",
                 "composite_albedo")
+BENCH_LIGHT, BENCH_FAR, SHADOW_PX = [0.5, 1.5, 2.0], 10.0, 1024  # bench.py
+RENDER_CALLS = 5
 
 
 def log(msg):
@@ -119,7 +125,7 @@ class Capture:
 
     def __enter__(self):
         for name in ("texel_rows", "fragment_apply", "composite_forward",
-                     "composite_backward"):
+                     "composite_backward", "min_depth", "overdraw"):
             real = getattr(self.kernels, name)
             self.saved[name] = real
 
@@ -138,34 +144,31 @@ class Capture:
             setattr(self.kernels, name, real)
 
 
-class DropWatch:
-    """Records the dropped_pairs of every tiled render while the training
-    paths run, through train.fit's rasterize_tiled and the tiled module's
-    own (the renders this script makes); both are restored on exit."""
+class Record:
+    """Records what a module-level function returns while a path runs (the
+    function still runs; nothing else changes): each binning's
+    dropped_pairs (every render bins once, a cubemap once), the shadow
+    factor of a frame."""
 
-    def __init__(self, modules):
-        self.modules = modules
-        self.real = modules[0].rasterize_tiled
-        self.dropped = []
+    def __init__(self, module, name, pick=lambda out: out):
+        self.module, self.name, self.pick = module, name, pick
+        self.real = getattr(module, name)
+        self.got = []
 
-    def _raster(self, *args, **kw):
+    def _call(self, *args, **kw):
         out = self.real(*args, **kw)
-        self.dropped.append(out["dropped_pairs"])
+        self.got.append(self.pick(out))
         return out
 
     def __enter__(self):
-        for m in self.modules:
-            m.rasterize_tiled = self._raster
+        setattr(self.module, self.name, self._call)
         return self
 
     def __exit__(self, *exc):
-        for m in self.modules:
-            m.rasterize_tiled = self.real
+        setattr(self.module, self.name, self.real)
 
     def take(self):
-        """The dropped counts since the last call, one per render."""
-        got = [int(d) for d in self.dropped]
-        self.dropped.clear()
+        got, self.got = self.got, []
         return got
 
 
@@ -263,6 +266,7 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
     capture of the kernels' arguments and the time lines for phase 6."""
     from mesh2splat_torch.ops import conversion as TC
     from mesh2splat_torch.ops.projection import project_splats
+    from mesh2splat_torch.render import binning as TB
     from mesh2splat_torch.render import tiled as TT
     from mesh2splat_torch.types import SplatFormat, make_camera
 
@@ -276,7 +280,7 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
         for k, n in expect.items():
             check(paths[name][k] == n, f"{name}: kernel {k} launched "
                   f"{paths[name][k]} times, expected {n}")
-        dropped = watch.take()
+        dropped = [int(d) for d in watch.take()]
         check(len(dropped) == renders and not any(dropped),
               f"{name}: dropped pairs per render {dropped}, expected "
               f"{renders} renders with none dropped")
@@ -288,7 +292,8 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
     fit_cfg = TFIT.FitConfig(steps=FIT_STEPS, lr=FIT_LR, width=W_PX,
                              height=H_PX, std_dev=mult)
     torch.cuda.reset_peak_memory_stats()
-    with Capture(kernels) as cap, DropWatch([TFIT, TT]) as watch:
+    with Capture(kernels) as cap, \
+            Record(TB, "bin_pairs", lambda b: b.dropped_pairs) as watch:
         t0 = time.perf_counter()
         _, hist = run("fit_splats",
                       lambda: TFIT.fit_splats(start, cams, targets, fit_cfg),
@@ -315,7 +320,8 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
             tex_targets = torch.stack([TFIT.render_rgb(
                 sp_gt, c, TEX_PX, TEX_PX, std_dev=mult,
                 splat_format=SplatFormat.MESH2SPLAT) for c in tcams])
-        check(watch.take() == [0, 0], "fit_textures targets: dropped pairs")
+        check([int(d) for d in watch.take()] == [0, 0],
+              "fit_textures targets: dropped pairs")
         grey = dataclasses.replace(mat, base_color=torch.full_like(
             mat.base_color, 0.5))
         t0 = time.perf_counter()
@@ -337,7 +343,8 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
             sp_t, tcams[0], TEX_PX, TEX_PX, std_dev=mult,
             splat_format=SplatFormat.MESH2SPLAT) - tex_targets[0]) ** 2)
         (g_tex,) = torch.autograd.grad(loss, [tex])
-        check(watch.take() == [0], "fit_textures gradient: dropped pairs")
+        check([int(d) for d in watch.take()] == [0],
+              "fit_textures gradient: dropped pairs")
         log(f"fit_textures: {cfg.capacity} slots, 2 views at "
             f"{TEX_PX}x{TEX_PX}, "
             f"{TEX_STEPS} steps in {tex_s:.2f} s, history {tex_hist}, "
@@ -412,6 +419,119 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
     return {"paths": paths, "capture": cap, "times": times}
 
 
+def render_paths(torch, kernels, scene, sp, img_albedo, img_final, dev):
+    """Phase 3c: the render paths at full size on the converted sphere, each
+    with the launch counters zeroed before it and read after it; no binning
+    may drop a class-C pair. Returns their counts, the capture of the
+    kernels' arguments and the time lines for phase 6."""
+    from mesh2splat_torch.render import binning as TB
+    from mesh2splat_torch.render import pipeline as TP
+    from mesh2splat_torch.render.shadows import (
+        _shadow_prep_fused, render_shadow_cubemap,
+    )
+    from mesh2splat_torch.types import RenderMode, make_camera
+
+    mult = scene.last_config.scale_multiplier
+    light = torch.tensor(BENCH_LIGHT, device=dev)
+    far = torch.tensor(BENCH_FAR, device=dev)
+    # bench.py's cubemap: the pair budget calibrated once, then fixed
+    need = int(_shadow_prep_fused(sp, light, far, mult, SHADOW_PX)[2])
+    shadow_cap = TB.round_pow2_budget(need)
+    view = dict(eye=EYE, width=W_PX, height=H_PX, fov_deg=60.0)
+    paths, times = {}, []
+
+    def cubemap():
+        return render_shadow_cubemap(sp, light, far, mult, size=SHADOW_PX,
+                                     method="tiled", pair_capacity=shadow_cap,
+                                     device=dev)
+
+    def run(name, fn, expect, bins):
+        kernels.reset_launches()
+        out = fn()
+        sync()
+        paths[name] = dict(kernels.launches)
+        for k, n in expect.items():
+            check(paths[name][k] == n, f"{name}: kernel {k} launched "
+                  f"{paths[name][k]} times, expected {n}")
+        dropped = [int(d) for d in drops.take()]
+        check(len(dropped) == bins and not any(dropped),
+              f"{name}: dropped pairs per binning {dropped}, expected "
+              f"{bins} binnings with none dropped")
+        log(f"{name}: launches {paths[name]}, {bins} binnings with no "
+            "dropped pairs")
+        return out
+
+    with Capture(kernels) as cap, \
+            Record(TB, "bin_pairs", lambda b: b.dropped_pairs) as drops, \
+            Record(TP, "pcf_shadow_factor") as shadow:
+        cm = run("cubemap", cubemap, {"min_depth": 1}, bins=1)
+        faces = cm.faces
+        cov = (faces < 1.0).flatten(1).float().mean(1).tolist()
+        log(f"cubemap {SHADOW_PX}^2 x 6 at light {BENCH_LIGHT}, far "
+            f"{BENCH_FAR}: {need} class-C pairs needed (budget {shadow_cap}),"
+            f" covered share per face {[round(c, 4) for c in cov]}")
+        # the sphere lies towards -X, -Y and -Z from the light; no splat's
+        # dominant direction is +X, +Y or +Z
+        check(float(faces.min()) > 0.0 and float(faces.max()) <= 1.0,
+              "cubemap values outside (0, 1]")
+        check(cov[5] > 0.01 and cov[0] == cov[2] == cov[4] == 0.0,
+              f"cubemap coverage per face {cov}")
+
+        img_sh = run("final_shadows", lambda: scene.render(
+            sp, mode=RenderMode.FINAL, shadows=True, **view),
+            {"min_depth": 1, "composite_full": 1}, bins=2)
+        (factor,) = shadow.take()
+        share = float((factor > 0).float().mean())
+        log(f"FINAL with shadows: {100 * share:.4f} % of pixels have a "
+            f"shadow factor above 0; max brightening over the unshadowed "
+            f"frame {float((img_sh - img_final).max()):.3g}")
+        check(bool(torch.isfinite(img_sh).all()), "shadowed frame not finite")
+        check(bool((img_sh <= img_final + 1e-6).all()),
+              "the shadowed frame is brighter than the unshadowed one")
+
+        img_od = run("overdraw", lambda: scene.render(
+            sp, mode=RenderMode.OVERDRAW, **view), {"overdraw": 1}, bins=1)
+        check(bool(torch.isfinite(img_od).all()) and float(img_od.max()) > 0,
+              "OVERDRAW frame not finite or empty")
+        log(f"OVERDRAW: max {float(img_od.max()):.4g} (= 0.01 x the deepest "
+            f"count {float(img_od[..., 0].max()) / 0.01:.0f})")
+
+        mesh, mat, _ = scene.primitives[0]
+        cam = make_camera(EYE, [0, 0, 0], [0, 1, 0], np.pi / 3, W_PX, H_PX,
+                          device=dev)
+        fc = TP.calibrate_frame(sp, cam, TP.FrameConfig(
+            W_PX, H_PX, RenderMode.ALBEDO,
+            resolution_target=scene.last_config.resolution,
+            depth_test_mesh=True))
+        img_dt = run("depth_test", lambda: TP.render_frame(
+            sp, cam, fc, mesh=mesh, material=mat), {"composite_full": 1},
+            bins=1)
+        check(bool(torch.isfinite(img_dt).all()) and float(img_dt.mean()) > 0.01,
+              "depth-tested frame not finite or empty")
+
+        img_sp = run("split", lambda: scene.render_split(sp, **view),
+                     {"composite_full": 1}, bins=1)
+        check(bool(torch.isfinite(img_sp).all())
+              and bool((img_sp[:, W_PX // 2] == 1.0).all()),
+              "split frame not finite or without its divider")
+        left = img_sp[:, :W_PX // 2 - 2].mean()
+        right = img_sp[:, W_PX // 2 + 2:].mean()
+        log(f"depth test: mean |diff| to the untested ALBEDO frame "
+            f"{float((img_dt - img_albedo).abs().mean()):.3g}"
+            f"; split: mesh half mean {float(left):.4f}, splat half "
+            f"{float(right):.4f}")
+
+    t_cm = host_ms(cubemap, RENDER_CALLS)
+    t_sh = host_ms(lambda: scene.render(sp, mode=RenderMode.FINAL,
+                                        shadows=True, **view), RENDER_CALLS)
+    t_od = host_ms(lambda: scene.render(sp, mode=RenderMode.OVERDRAW,
+                                        **view), RENDER_CALLS)
+    times.append(f"shadow cubemap {SHADOW_PX}^2 x 6 (bench.py's settings): "
+                 f"{t_cm:.2f} ms; {W_PX}x{H_PX} FINAL with shadows "
+                 f"{t_sh:.2f} ms; {W_PX}x{H_PX} OVERDRAW {t_od:.2f} ms")
+    return {"paths": paths, "capture": cap, "times": times}
+
+
 def training_card_vs_cpu(torch, TFIT, small, got, mult_small):
     """Phase 5's training part: one fit_splats loss and its gradients, and
     one fit_textures gradient, on the card and on the CPU (2k triangles,
@@ -461,6 +581,52 @@ def training_card_vs_cpu(torch, TFIT, small, got, mult_small):
     check(loss_rel <= 1e-5 and max(grad_rel.values()) <= 1e-3
           and tex_rel <= 1e-3 and bool(g_p.any()),
           "card and CPU training differ")
+
+
+def render_card_vs_cpu(torch, small, got, mult_small):
+    """Phase 5's render part (2k triangles, res 128): the tiled cubemap at
+    128^2 (K5), and at 160x120 the FINAL frame with shadows (a 512^2
+    cubemap, which "auto" renders tiled), the OVERDRAW frame (K6), the
+    depth-tested frame and the split screen, on the card and on the CPU."""
+    from mesh2splat_torch.render import pipeline as TP
+    from mesh2splat_torch.render.shadows import render_shadow_cubemap
+    from mesh2splat_torch.types import RenderMode, make_camera
+
+    out = {}
+    for d in ("cuda", "cpu"):
+        mesh, mat, _ = make_scene(small, d).primitives[0]
+        s_sp = got[d][0]
+        faces = render_shadow_cubemap(s_sp, BENCH_LIGHT, BENCH_FAR,
+                                      mult_small, size=128, method="tiled",
+                                      device=d).faces
+        cam = make_camera([0, 0.2, 3.0], [0, 0, 0], [0, 1, 0], np.pi / 3,
+                          160, 120, device=d)
+        kw = dict(resolution_target=128)
+        imgs = [TP.render_frame(s_sp, cam, TP.FrameConfig(
+                    160, 120, RenderMode.FINAL, shadows=True, shadow_size=512,
+                    **kw)),
+                TP.render_frame(s_sp, cam, TP.FrameConfig(
+                    160, 120, RenderMode.OVERDRAW, **kw)),
+                TP.render_frame(s_sp, cam, TP.FrameConfig(
+                    160, 120, depth_test_mesh=True, **kw), mesh=mesh,
+                    material=mat),
+                TP.render_split_screen(s_sp, mesh, mat, cam, TP.FrameConfig(
+                    160, 120, **kw))]
+        out[d] = [faces.cpu()] + [im.cpu() for im in imgs]
+    (f_c, *i_c), (f_p, *i_p) = out["cuda"], out["cpu"]
+    cov_c, cov_p = f_c < 1.0, f_p < 1.0
+    agree = float((cov_c == cov_p).float().mean())
+    both = cov_c & cov_p
+    ddiff = float((f_c - f_p)[both].abs().max())
+    idiff = [float((a - b).abs().max()) for a, b in zip(i_c, i_p)]
+    log(f"card vs CPU renders (2k tris, res 128): cubemap 128^2 coverage "
+        f"{float(cov_p.float().mean()):.4f}, agreeing on {agree:.6f} of "
+        f"pixels, depth max |diff| {ddiff:.3g}; 160x120 FINAL+shadows, "
+        f"OVERDRAW, depth-tested, split max |diff| "
+        f"{[float(f'{x:.3g}') for x in idiff]}")
+    check(float(cov_p.float().mean()) > 0.005 and agree >= 0.999
+          and ddiff <= 1e-5 and max(idiff) <= 1e-3,
+          "card and CPU renders differ")
 
 
 def main():
@@ -570,6 +736,12 @@ def main():
     log(f"device memory after the training paths: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
+    # ---- 3c. the render paths at full size ------------------------------
+    renders = render_paths(torch, kernels, scene, sp, img_albedo, img_final,
+                           dev)
+    paths.update(renders["paths"])
+    cap_r = renders["capture"]
+
     # ---- 4. kernels against their plain versions on the card ----------
     errs = {}
     (rec, meta), kw1 = cap.seen["texel_rows"]
@@ -655,6 +827,30 @@ def main():
               and not bool(d_k[nf:].any()),
               f"K4 {variant} differs from its plain version")
 
+    k56_inputs, k56_plain_ms = {}, {}
+    for name, plain in (("min_depth", TCOMP.min_depth_plain),
+                        ("overdraw", TCOMP.overdraw_plain)):
+        (fields, starts), kw5 = cap_r.seen[name]
+        k56_inputs[name] = (fields, starts, kw5)
+        got_k = getattr(kernels, name)(fields, starts, **kw5)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        ref_p = plain(fields, starts, kw5["height"], kw5["ty"], kw5["tx"],
+                      tile_batch=512)
+        e1.record()
+        e1.synchronize()
+        k56_plain_ms[name] = e0.elapsed_time(e1)
+        equal = bool(torch.equal(got_k, ref_p))
+        errs[name] = float((got_k - ref_p).abs().max())
+        per_tile = starts[1:] - starts[:-1]
+        log(f"{'K5' if name == 'min_depth' else 'K6'} {name}: "
+            f"{kw5['ty'] * kw5['tx']} tiles ({int((per_tile > 0).sum())} "
+            f"with pairs, the fullest {int(per_tile.max())}), "
+            f"{int(starts[-1])} pairs, "
+            f"{int((got_k != ref_p).sum())} pixels differ (max |diff| "
+            f"{errs[name]:.3g}), equal to the plain version: {equal}")
+        check(equal, f"{name} differs from its plain version")
+
     # ---- 5. the slice on the card vs the same code on the CPU ----------
     small = synth_primitive(2_000, tex=128, seed=1)
     got = {}
@@ -675,6 +871,7 @@ def main():
         f"equal, splats max |diff| {sdiff:.3g}, image max |diff| {idiff:.3g}")
     check(sdiff <= 2e-5 and idiff <= 1e-3, "card and CPU slices differ")
     training_card_vs_cpu(torch, TFIT, small, got, mult_small=1.0 / 128)
+    render_card_vs_cpu(torch, small, got, mult_small=1.0 / 128)
 
     # ---- 6. times --------------------------------------------------------
     conv_ms = host_ms(lambda: scene.convert(resolution=512, layers=6), 10)
@@ -767,13 +964,30 @@ def main():
               errs[f"composite_bwd_{variant}"],
               path="fit_splats" if variant == "albedo" else "grad_full",
               rel_err=errs[f"composite_bwd_{variant}_rel"])
+    for name, n_fields, line in (("min_depth", 6, 784),
+                                 ("overdraw", 5, 833)):
+        fields, starts, kw5 = k56_inputs[name]
+        pairs = int(starts[-1])
+        ty, tx = kw5["ty"], kw5["tx"]
+        # every (pair, pixel) of every chunk (no early exit): the falloff
+        # polynomial, the quad's u and v and the coverage test (22 flops);
+        # per pair the conic's axes and the plane coefficients (~60)
+        entry(name, "mesh2splat_torch/kernels/csrc/single_channel.cu",
+              f"mesh2splat_tpu/render/composite.py:{line}",
+              event_ms(lambda: getattr(kernels, name)(fields, starts, **kw5),
+                       10),
+              k56_plain_ms[name],
+              n_fields * pairs * 4 + (ty * tx + 1) * 4
+              + ty * 32 * tx * 32 * 4,
+              pairs * (1024 * 22 + 60), errs[name],
+              path="cubemap" if name == "min_depth" else "overdraw")
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms,"
             f" bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['launches']} launches on the {r['path']} path, "
             f"{r['launches_per_training_step']:g} per fit_splats step, "
             f"{r['launches_per_texture_step']:g} per fit_textures step)")
-    for line in train["times"]:
+    for line in train["times"] + renders["times"]:
         log(f"{line} ({smi})")
 
     print(json.dumps({"kernels": rows}))

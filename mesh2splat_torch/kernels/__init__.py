@@ -12,6 +12,8 @@ tensors take the plain PyTorch versions beside them.
   composite_albedo  K3  the same, albedo_only=True
   composite_bwd_full    K4  the backward of composite_tiles
   composite_bwd_albedo  K4  the same, albedo_only=True
+  min_depth         K5  render/composite.py::min_depth_tiles
+  overdraw          K6  render/composite.py::overdraw_tiles
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from . import build as _build
 
 launches = {"texel_rows": 0, "fragment_apply": 0, "composite_full": 0,
             "composite_albedo": 0, "composite_bwd_full": 0,
-            "composite_bwd_albedo": 0}
+            "composite_bwd_albedo": 0, "min_depth": 0, "overdraw": 0}
 
 REC_W = 64
 MAX_LEVELS = 8
@@ -66,6 +68,8 @@ _SIGNATURES = {
                   [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P]),
     "composite_bwd": ("m2s_composite_backward",
                       [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "single_channel": ("m2s_single_channel",
+                       [_P, _L, _P, _I, _I, _I, _I, _P, _P]),
 }
 _fns: dict = {}
 
@@ -195,3 +199,32 @@ def composite_backward(fields, tile_starts, ct, res, *, height, ty, tx,
     launches["composite_bwd_albedo" if albedo_only else
              "composite_bwd_full"] += 1
     return dfields
+
+
+def _single_channel(fields, tile_starts, height, ty, tx, min_depth):
+    _check(fields, "fields", torch.float32, 2, rows=8)
+    _check(tile_starts, "tile_starts", torch.int32, 1, fields.device,
+           rows=ty * tx + 1)
+    out = torch.empty((1, ty * 32, tx * 32), dtype=torch.float32,
+                      device=fields.device)
+    err = _fn("single_channel")(
+        fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(), ty, tx,
+        height, int(min_depth), out.data_ptr(), _stream(fields.device))
+    name = "min_depth" if min_depth else "overdraw"
+    _raise_on(err, name)
+    launches[name] += 1
+    return out
+
+
+def min_depth(fields, tile_starts, *, height, ty, tx):
+    """K5: the (1, ty*32, tx*32) per-pixel minimum depth over covering pairs
+    (3e38 where none). fields (8, P) f32 of the "depth" variant, tile_starts
+    (ty*tx + 1,) int32."""
+    return _single_channel(fields, tile_starts, height, ty, tx, True)
+
+
+def overdraw(fields, tile_starts, *, height, ty, tx):
+    """K6: the (1, ty*32, tx*32) per-pixel count of covering pairs, as f32.
+    fields (8, P) f32 of the "overdraw" variant, tile_starts (ty*tx + 1,)
+    int32."""
+    return _single_channel(fields, tile_starts, height, ty, tx, False)

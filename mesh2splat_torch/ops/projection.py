@@ -74,62 +74,23 @@ def _hash_random2d(co):
     return torch.remainder(torch.sin(sn) * 43758.5453, 1.0)
 
 
-def project_splats(
-    splats: Splats,
-    camera: Camera,
-    std_dev: float = 1.0,
-    render_mode: RenderMode = RenderMode.ALBEDO,
-    splat_format: SplatFormat = SplatFormat.MESH2SPLAT,
-    has_pbr: bool = True,
-    model_to_world: torch.Tensor | None = None,
-    depth_map: torch.Tensor | None = None,
-) -> ProjectedSplats:
-    """Project all splats to screen space on the splats' device.
-    Differentiable with respect to the splats' pos, color, scale, quat,
-    normal and pbr; the camera's entries enter as Python floats."""
-    if depth_map is not None:
-        raise NotImplementedError(
-            "mesh-occlusion culling (depth_map) needs the mesh rasterizer, "
-            "which the port brings in its mesh-raster slice"
-        )
-    width, height = camera.width, camera.height
-    # matrix entries as Python floats: each product below is f32 x f32
-    P = camera.view_to_clip.tolist()
-    V = camera.world_to_view.tolist()
-
-    px, py, pz = splats.pos[:, 0], splats.pos[:, 1], splats.pos[:, 2]
-
-    def affine(row, x, y, z):
-        # row . (x, y, z, 1), fused as the reference's arithmetic fuses it
-        return fma(row[2], z, fma(row[0], x, row[1] * y)) + row[3]
-
-    identity_model = model_to_world is None
-    if identity_model:
-        M = np.eye(4, dtype=np.float32)
-        wsx, wsy, wsz = px, py, pz
-    else:
-        M = model_to_world.detach().cpu().numpy().astype(np.float32)
-        Ml = M.tolist()
-        wsx, wsy, wsz = (affine(Ml[i], px, py, pz) for i in range(3))
-
-    vsx, vsy, vsz = (affine(V[i], wsx, wsy, wsz) for i in range(3))
-    cx, cy, cz, cw = (affine(P[i], vsx, vsy, vsz) for i in range(4))
-
-    margin = 1.05 * cw
-    inside = ((cz >= -margin) & (cx >= -margin) & (cx <= margin)
-              & (cy >= -margin) & (cy <= margin))
-    valid = splats.valid & inside
-
-    # scale decode; model scale per column (|c0|, |c1|, |c2|)
-    multiplier = std_dev if int(splat_format) in (0, 3) else 1.0
-    model_scale = np.sqrt((M[:3, :3].astype(np.float32) ** 2).sum(axis=0))
+def model_frame(model_to_world):
+    """(M, ms, mr) of a model matrix (None: the identity): M in numpy
+    float32, the squared column norms as Python floats, and the rotation
+    (columns over their norms) as nested lists, None for the identity."""
+    if model_to_world is None:
+        return np.eye(4, dtype=np.float32), [1.0, 1.0, 1.0], None
+    M = model_to_world.detach().cpu().numpy().astype(np.float32)
+    model_scale = np.sqrt((M[:3, :3] ** 2).sum(axis=0))
     ms = [float(np.float32(v * v)) for v in model_scale]
-    s0 = splats.scale[:, 0] * multiplier * ms[0]
-    s1 = splats.scale[:, 1] * multiplier * ms[1]
-    s2 = splats.scale[:, 2] * multiplier * ms[2]
+    mr = (M[:3, :3] / np.maximum(model_scale, 1e-12)).astype(np.float32)
+    return M, ms, mr.tolist()
 
-    qw, qx, qy, qz = (splats.quat[:, 0], splats.quat[:, 1],
-                      splats.quat[:, 2], splats.quat[:, 3])
+
+def rotation_columns(quat, mr=None):
+    """The nine entries r00, r01, ..., r22 of each (w, x, y, z) quaternion's
+    rotation, with the model rotation ``mr`` (model_frame) folded in."""
+    qw, qx, qy, qz = quat[:, 0], quat[:, 1], quat[:, 2], quat[:, 3]
     r00 = 1.0 - 2.0 * (qy * qy + qz * qz)
     r01 = 2.0 * (qx * qy - qw * qz)
     r02 = 2.0 * (qx * qz + qw * qy)
@@ -139,10 +100,7 @@ def project_splats(
     r20 = 2.0 * (qx * qz - qw * qy)
     r21 = 2.0 * (qy * qz + qw * qx)
     r22 = 1.0 - 2.0 * (qy * qy + qx * qx)
-
-    if not identity_model:
-        mr = (M[:3, :3] / np.maximum(model_scale, 1e-12)).astype(np.float32)
-        mr = mr.tolist()
+    if mr is not None:
         r00, r10, r20 = (
             mr[0][0] * r00 + mr[0][1] * r10 + mr[0][2] * r20,
             mr[1][0] * r00 + mr[1][1] * r10 + mr[1][2] * r20,
@@ -158,51 +116,43 @@ def project_splats(
             mr[1][0] * r02 + mr[1][1] * r12 + mr[1][2] * r22,
             mr[2][0] * r02 + mr[2][1] * r12 + mr[2][2] * r22,
         )
+    return r00, r01, r02, r10, r11, r12, r20, r21, r22
 
-    def dot3(a0, b0, a1, b1, a2, b2):
-        # a0*b0 + a1*b1 + a2*b2, fused as the reference's arithmetic fuses it
-        return fma(a2, b2, fma(a0, b0, a1 * b1))
 
-    # cov3d = R S^2 R^T (6 unique entries)
-    q0, q1, q2 = s0 * s0, s1 * s1, s2 * s2
-    c00 = dot3(r00 * r00, q0, r01 * r01, q1, r02 * r02, q2)
-    c01 = dot3(r00 * r10, q0, r01 * r11, q1, r02 * r12, q2)
-    c02 = dot3(r00 * r20, q0, r01 * r21, q1, r02 * r22, q2)
-    c11 = dot3(r10 * r10, q0, r11 * r11, q1, r12 * r12, q2)
-    c12 = dot3(r10 * r20, q0, r11 * r21, q1, r12 * r22, q2)
-    c22 = dot3(r20 * r20, q0, r21 * r21, q1, r22 * r22, q2)
+def _dot3(a0, b0, a1, b1, a2, b2):
+    # a0*b0 + a1*b1 + a2*b2, fused as the reference's arithmetic fuses it
+    return fma(a2, b2, fma(a0, b0, a1 * b1))
 
-    # EWA Jacobian; z_view is negative in front of the camera
-    z_safe = torch.where(vsz.abs() < 1e-8, -1e-8, vsz)
-    p00, p11 = P[0][0], P[1][1]
-    jsx = -(p00 * width) / (2.0 * z_safe)
-    jsy = -(p11 * height) / (2.0 * z_safe)
-    jtx = (p00 * vsx * width) / (2.0 * z_safe * z_safe)
-    jty = (p11 * vsy * height) / (2.0 * z_safe * z_safe)
 
-    u0 = fma(jsx, V[0][0], jtx * V[2][0])
-    u1 = fma(jsx, V[0][1], jtx * V[2][1])
-    u2 = fma(jsx, V[0][2], jtx * V[2][2])
-    v0 = fma(jsy, V[1][0], jty * V[2][0])
-    v1 = fma(jsy, V[1][1], jty * V[2][1])
-    v2 = fma(jsy, V[1][2], jty * V[2][2])
-
-    cu0 = dot3(c00, u0, c01, u1, c02, u2)
-    cu1 = dot3(c01, u0, c11, u1, c12, u2)
-    cu2 = dot3(c02, u0, c12, u1, c22, u2)
-    a = dot3(u0, cu0, u1, cu1, u2, cu2) + 0.3
-    b = dot3(v0, cu0, v1, cu1, v2, cu2)
-    cv0 = dot3(c00, v0, c01, v1, c02, v2)
-    cv1 = dot3(c01, v0, c11, v1, c12, v2)
-    cv2 = dot3(c02, v0, c12, v1, c22, v2)
-    c = dot3(v0, cv0, v1, cv1, v2, cv2) + 0.3
+def screen_conic(r, s, u, v):
+    """(lam2 >= 0, conic (N, 3)) of the 2D covariance J W R S^2 R^T W^T J^T
+    + 0.3 I: r the nine rotation entries (rotation_columns), s the three
+    scales, u and v the two rows of J W."""
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = r
+    q0, q1, q2 = s[0] * s[0], s[1] * s[1], s[2] * s[2]
+    c00 = _dot3(r00 * r00, q0, r01 * r01, q1, r02 * r02, q2)
+    c01 = _dot3(r00 * r10, q0, r01 * r11, q1, r02 * r12, q2)
+    c02 = _dot3(r00 * r20, q0, r01 * r21, q1, r02 * r22, q2)
+    c11 = _dot3(r10 * r10, q0, r11 * r11, q1, r12 * r12, q2)
+    c12 = _dot3(r10 * r20, q0, r11 * r21, q1, r12 * r22, q2)
+    c22 = _dot3(r20 * r20, q0, r21 * r21, q1, r22 * r22, q2)
+    u0, u1, u2 = u
+    v0, v1, v2 = v
+    cu0 = _dot3(c00, u0, c01, u1, c02, u2)
+    cu1 = _dot3(c01, u0, c11, u1, c12, u2)
+    cu2 = _dot3(c02, u0, c12, u1, c22, u2)
+    a = _dot3(u0, cu0, u1, cu1, u2, cu2) + 0.3
+    b = _dot3(v0, cu0, v1, cu1, v2, cu2)
+    cv0 = _dot3(c00, v0, c01, v1, c02, v2)
+    cv1 = _dot3(c01, v0, c11, v1, c12, v2)
+    cv2 = _dot3(c02, v0, c12, v1, c22, v2)
+    c = _dot3(v0, cv0, v1, cv1, v2, cv2) + 0.3
 
     mid = a + c
     amc = a - c
     b2 = 2.0 * b
     delta = sqrt(fma(amc, amc, b2 * b2))
     lam2 = 0.5 * (mid - delta)
-    valid = valid & (lam2 >= 0.0)
 
     det = fma(a, c, -(b * b))
     det_ok = det.abs() >= 1e-20
@@ -212,6 +162,83 @@ def project_splats(
         torch.where(det_ok, -b / det_safe, 0.0),
         torch.where(det_ok, a / det_safe, 0.0),
     ], dim=-1)
+    return lam2 >= 0.0, conic
+
+
+def project_splats(
+    splats: Splats,
+    camera: Camera,
+    std_dev: float = 1.0,
+    render_mode: RenderMode = RenderMode.ALBEDO,
+    splat_format: SplatFormat = SplatFormat.MESH2SPLAT,
+    has_pbr: bool = True,
+    model_to_world: torch.Tensor | None = None,
+    depth_map: torch.Tensor | None = None,
+) -> ProjectedSplats:
+    """Project all splats to screen space on the splats' device.
+    Differentiable with respect to the splats' pos, color, scale, quat,
+    normal and pbr; the camera's entries enter as Python floats.
+
+    depth_map: optional (H, W) window depth of the mesh prepass (row 0 at
+    the bottom); MESH2SPLAT splats with opacity above 0.95 behind it by
+    more than 2e-5 are culled."""
+    width, height = camera.width, camera.height
+    # matrix entries as Python floats: each product below is f32 x f32
+    P = camera.view_to_clip.tolist()
+    V = camera.world_to_view.tolist()
+
+    px, py, pz = splats.pos[:, 0], splats.pos[:, 1], splats.pos[:, 2]
+
+    def affine(row, x, y, z):
+        # row . (x, y, z, 1), fused as the reference's arithmetic fuses it
+        return fma(row[2], z, fma(row[0], x, row[1] * y)) + row[3]
+
+    identity_model = model_to_world is None
+    M, ms, mr = model_frame(model_to_world)
+    if identity_model:
+        wsx, wsy, wsz = px, py, pz
+    else:
+        Ml = M.tolist()
+        wsx, wsy, wsz = (affine(Ml[i], px, py, pz) for i in range(3))
+
+    vsx, vsy, vsz = (affine(V[i], wsx, wsy, wsz) for i in range(3))
+    cx, cy, cz, cw = (affine(P[i], vsx, vsy, vsz) for i in range(4))
+
+    margin = 1.05 * cw
+    inside = ((cz >= -margin) & (cx >= -margin) & (cx <= margin)
+              & (cy >= -margin) & (cy <= margin))
+    valid = splats.valid & inside
+
+    if depth_map is not None and int(splat_format) == 0:
+        # mesh-occlusion test of opaque splats against the depth prepass
+        cw_s = torch.where(cw.abs() < 1e-12, 1e-12, cw)
+        u_px = torch.clamp(((cx / cw_s * 0.5 + 0.5) * width).to(torch.int32),
+                           0, width - 1)
+        v_px = torch.clamp(((cy / cw_s * 0.5 + 0.5) * height).to(torch.int32),
+                           0, height - 1)
+        mesh_depth = depth_map[v_px.long(), u_px.long()]
+        my_depth = (cz / cw_s) * 0.5 + 0.5
+        occluded = (splats.color[:, 3] > 0.95) & (my_depth > mesh_depth + 2e-5)
+        valid = valid & ~occluded
+
+    # scale decode; model scale per column (|c0|, |c1|, |c2|)
+    multiplier = std_dev if int(splat_format) in (0, 3) else 1.0
+    s = [splats.scale[:, i] * multiplier * ms[i] for i in range(3)]
+    r = rotation_columns(splats.quat, mr)
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = r
+
+    # EWA Jacobian; z_view is negative in front of the camera
+    z_safe = torch.where(vsz.abs() < 1e-8, -1e-8, vsz)
+    p00, p11 = P[0][0], P[1][1]
+    jsx = -(p00 * width) / (2.0 * z_safe)
+    jsy = -(p11 * height) / (2.0 * z_safe)
+    jtx = (p00 * vsx * width) / (2.0 * z_safe * z_safe)
+    jty = (p11 * vsy * height) / (2.0 * z_safe * z_safe)
+
+    u = [fma(jsx, V[0][k], jtx * V[2][k]) for k in range(3)]
+    v = [fma(jsy, V[1][k], jty * V[2][k]) for k in range(3)]
+    lam2_ok, conic = screen_conic(r, s, u, v)
+    valid = valid & lam2_ok
     mjx, mjy, mnx, mny = axes_from_conic(conic[:, 0], conic[:, 1], conic[:, 2])
     axes_px = torch.stack([mjx, mjy, mnx, mny], dim=-1).reshape(-1, 2, 2)
 

@@ -40,8 +40,11 @@ FIELDS_FULL = FIELDS_ALBEDO + (
     "nrm_x", "nrm_y", "nrm_z", "ws_x", "ws_y", "ws_z",
     "depth", "metal", "rough",
 )
+FIELDS_DEPTH = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "depth")
+FIELDS_OVERDRAW = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c")
 
-VARIANT_FIELDS = {"albedo": FIELDS_ALBEDO, "full": FIELDS_FULL}
+VARIANT_FIELDS = {"albedo": FIELDS_ALBEDO, "full": FIELDS_FULL,
+                  "depth": FIELDS_DEPTH, "overdraw": FIELDS_OVERDRAW}
 
 
 def field_index(variant: str) -> dict:
@@ -104,8 +107,13 @@ class _SortCarry(torch.autograd.Function):
         return out, None
 
 
-def _tile_geom(proj: ProjectedSplats, width: int, height: int):
-    """Per-splat tile bbox (tx0, ty0, sx, sy) + validity."""
+def _tile_geom(proj: ProjectedSplats, width: int, height: int, band_ty=None):
+    """Per-splat tile bbox (tx0, ty0, sx, sy) + validity.
+
+    band_ty: optional per-splat (ty_lo, ty_hi) int32 tile-row clamp, the
+    per-face scissor of the fused shadow cubemap (six faces stacked as row
+    bands of one tall image; no splat's pairs may bleed into a neighbouring
+    face's band)."""
     ty, tx = tiles_for(width, height)
     mean_x = (proj.mean_ndc[:, 0] + 1.0) * (width * 0.5)
     mean_y = (proj.mean_ndc[:, 1] + 1.0) * (height * 0.5)
@@ -117,15 +125,21 @@ def _tile_geom(proj: ProjectedSplats, width: int, height: int):
     y_lo = row_c - ext[:, 1]
     y_hi = row_c + ext[:, 1]
 
-    def tile_of(v, size, hi):
-        return torch.clamp(torch.floor(v / size).to(torch.int32), 0, hi)
+    def tile_of(v, size, lo, hi):
+        return torch.clamp(torch.floor(v / size).to(torch.int32), lo, hi)
 
-    tx0 = tile_of(x_lo, TILE_W, tx - 1)
-    tx1 = tile_of(x_hi, TILE_W, tx - 1)
-    ty0 = tile_of(y_lo, TILE_H, ty - 1)
-    ty1 = tile_of(y_hi, TILE_H, ty - 1)
+    ty_lo, ty_hi = (0, ty - 1) if band_ty is None else band_ty
+    tx0 = tile_of(x_lo, TILE_W, 0, tx - 1)
+    tx1 = tile_of(x_hi, TILE_W, 0, tx - 1)
+    ty0 = tile_of(y_lo, TILE_H, ty_lo, ty_hi)
+    ty1 = tile_of(y_hi, TILE_H, ty_lo, ty_hi)
     on_screen = (x_hi >= 0) & (x_lo < width) & (y_hi >= 0) & (y_lo < height)
     valid = proj.valid & on_screen
+    if band_ty is not None:
+        # a quad wholly outside its band claims no tile (the clamps above
+        # can leave ty0 > ty1 there)
+        valid = valid & (y_hi >= (ty_lo * TILE_H).to(torch.float32)) \
+            & (y_lo < ((ty_hi + 1) * TILE_H).to(torch.float32))
     return (mean_x, mean_y), tx0, ty0, tx1 - tx0 + 1, ty1 - ty0 + 1, valid
 
 
@@ -152,8 +166,11 @@ def default_c_capacity(n_splats: int) -> int:
 
 
 def bin_pairs(proj: ProjectedSplats, width: int, height: int,
-              c_capacity: int = 0, variant: str = "full") -> BinnedPairs:
-    """Depth-ordered per-tile pair field lists from projected splats."""
+              c_capacity: int = 0, variant: str = "full",
+              band_ty=None) -> BinnedPairs:
+    """Depth-ordered per-tile pair field lists from projected splats.
+    band_ty: optional per-splat tile-row clamp (see _tile_geom), used by
+    the fused shadow cubemap."""
     n = proj.capacity
     dev = proj.depth.device
     ty, tx = tiles_for(width, height)
@@ -168,7 +185,8 @@ def bin_pairs(proj: ProjectedSplats, width: int, height: int,
     if not c_capacity:
         c_capacity = default_c_capacity(n)
 
-    mean_xy, tx0, ty0, sx, sy, valid = _tile_geom(proj, width, height)
+    mean_xy, tx0, ty0, sx, sy, valid = _tile_geom(proj, width, height,
+                                                  band_ty)
     pairs_n = sx * sy
     vals = _record_columns(proj, mean_xy, variant)  # (F, N)
     nf = vals.shape[0]
@@ -218,9 +236,10 @@ def bin_pairs(proj: ProjectedSplats, width: int, height: int,
 
 
 @torch.no_grad()
-def required_overflow(proj: ProjectedSplats, width: int, height: int):
+def required_overflow(proj: ProjectedSplats, width: int, height: int,
+                      band_ty=None):
     """Exact class-C (beyond-first-tile) pair requirement."""
-    _, _, _, sx, sy, valid = _tile_geom(proj, width, height)
+    _, _, _, sx, sy, valid = _tile_geom(proj, width, height, band_ty)
     pairs_n = sx * sy
     return torch.where(valid & (pairs_n > 1), pairs_n - 1, 0).sum()
 

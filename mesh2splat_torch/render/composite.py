@@ -22,10 +22,18 @@ dL/dalpha-plane = -(res_a - Bpref_a) / (1 - min(alpha*g, 0.9999)), and the
 per-pixel terms reduce over the tile's pixels into moments of the falloff
 power, which chain to the mean and conic rows.
 
-A CUDA tensor launches the hand-written kernels (``kernels.composite_forward``
-and ``kernels.composite_backward``); a CPU tensor takes ``composite_plain``
-and ``composite_backward_plain``, which do the same arithmetic over batches
-of tiles.
+The forward-only walkers (kernel K5 ``min_depth_tiles``, kernel K6
+``overdraw_tiles``) walk every chunk of each tile (no early exit) and keep,
+per pixel, the minimum ``depth`` field over the covering pairs (3e38 where
+none) or the count of covering pairs. A pair covers a pixel where its
+falloff g is above 0 (inside the quad and not underflowed), the coverage of
+the composite. Both are order-free.
+
+A CUDA tensor launches the hand-written kernels (``kernels.composite_forward``,
+``kernels.composite_backward``, ``kernels.min_depth``, ``kernels.overdraw``);
+a CPU tensor takes ``composite_plain``, ``composite_backward_plain``,
+``min_depth_plain`` and ``overdraw_plain``, which do the same arithmetic
+over batches of tiles.
 """
 
 from __future__ import annotations
@@ -47,8 +55,7 @@ G_GROUP = (4, 5, 6, 7, 12, 13)
 MIN_T = 1.0 / 255.0
 
 
-def _check_inputs(fields, tile_starts, ty, tx, albedo_only):
-    variant = "albedo" if albedo_only else "full"
+def _check_inputs(fields, tile_starts, ty, tx, variant):
     if fields.dim() != 2 or fields.shape[0] != B.padded_rows(variant):
         raise ValueError(
             f"fields {tuple(fields.shape)}: expected ({B.padded_rows(variant)}"
@@ -373,5 +380,85 @@ def composite_tiles(fields, tile_starts, height, ty, tx, albedo_only=False):
     """fields: (F_pad, P) from binning (variant "albedo" if albedo_only else
     "full"); returns the (16, ty*32, tx*32) G-buffer. Differentiable with
     respect to fields."""
-    _check_inputs(fields, tile_starts, ty, tx, albedo_only)
+    _check_inputs(fields, tile_starts, ty, tx,
+                  "albedo" if albedo_only else "full")
     return _Composite.apply(fields, tile_starts, height, ty, tx, albedo_only)
+
+
+MIN_DEPTH_NONE = 3e38   # the min-depth value of a pixel no pair covers
+
+
+def _single_channel_plain(fields, tile_starts, height, ty, tx, variant,
+                          tile_batch):
+    """The walk of K5 ("depth" variant: the minimum depth) and K6
+    ("overdraw": the count) over batches of tiles, every chunk of each
+    tile. Returns (1, ty*32, tx*32)."""
+    idx = B.field_index(variant)
+    min_depth = variant == "depth"
+    dev = fields.device
+    p_cap = fields.shape[1]
+    n_tiles = ty * tx
+    starts, ends, aligned, num_chunks = _tile_ranges(tile_starts)
+    pix = _pixel_coords(dev)
+    lane = torch.arange(CHUNK, device=dev)
+    out = torch.empty((n_tiles, NPX), dtype=torch.float32, device=dev)
+    for b0 in range(0, n_tiles, tile_batch):
+        tiles = torch.arange(b0, min(b0 + tile_batch, n_tiles), device=dev)
+        nb = tiles.shape[0]
+        tjf, py0 = _tile_origin(tiles, tx, height)
+        acc = torch.full((nb, NPX), MIN_DEPTH_NONE if min_depth else 0.0,
+                         dtype=torch.float32, device=dev)
+        s, e, al, nc = starts[tiles], ends[tiles], aligned[tiles], num_chunks[tiles]
+        for c in range(int(nc.max()) if nb else 0):
+            act = torch.nonzero(nc > c)[:, 0]   # the tiles with a chunk c
+            rows = al[act, None] + c * CHUNK + lane  # (na, CHUNK)
+            live = (rows >= s[act, None]) & (rows < e[act, None])
+            st = fields[:, rows.clamp(max=p_cap - 1)]  # (F, na, CHUNK)
+            g, _, _ = _chunk_planes(lambda name: st[idx[name]][..., None],
+                                    tjf[act], py0[act], pix, live[..., None])
+            cov = g > 0.0
+            if min_depth:
+                z = torch.where(cov, st[idx["depth"]][..., None],
+                                MIN_DEPTH_NONE)
+                acc[act] = torch.minimum(acc[act], z.amin(dim=1))
+            else:
+                acc[act] += cov.sum(dim=1).to(torch.float32)
+        out[b0:b0 + nb] = acc
+    return (out.reshape(ty, tx, TILE_H, TILE_W).permute(0, 2, 1, 3)
+            .reshape(1, ty * TILE_H, tx * TILE_W))
+
+
+@torch.no_grad()
+def min_depth_plain(fields, tile_starts, height, ty, tx, tile_batch=256):
+    """Plain version of K5 on "depth"-variant fields."""
+    return _single_channel_plain(fields, tile_starts, height, ty, tx, "depth",
+                                 tile_batch)
+
+
+@torch.no_grad()
+def overdraw_plain(fields, tile_starts, height, ty, tx, tile_batch=256):
+    """Plain version of K6 on "overdraw"-variant fields."""
+    return _single_channel_plain(fields, tile_starts, height, ty, tx,
+                                 "overdraw", tile_batch)
+
+
+def min_depth_tiles(binned: B.BinnedPairs, height, ty, tx):
+    """(1, ty*32, tx*32) per-pixel minimum of depth over covering pairs,
+    3e38 where none covers. Forward only. ``binned`` must use the "depth"
+    field variant."""
+    _check_inputs(binned.fields, binned.tile_starts, ty, tx, "depth")
+    if binned.fields.is_cuda:
+        return kernels.min_depth(binned.fields, binned.tile_starts,
+                                 height=height, ty=ty, tx=tx)
+    return min_depth_plain(binned.fields, binned.tile_starts, height, ty, tx)
+
+
+def overdraw_tiles(binned: B.BinnedPairs, height, ty, tx):
+    """(1, ty*32, tx*32) per-pixel count of covering pairs (the caller
+    scales it by the overdraw colour). Forward only. ``binned`` must use
+    the "overdraw" field variant."""
+    _check_inputs(binned.fields, binned.tile_starts, ty, tx, "overdraw")
+    if binned.fields.is_cuda:
+        return kernels.overdraw(binned.fields, binned.tile_starts,
+                                height=height, ty=ty, tx=tx)
+    return overdraw_plain(binned.fields, binned.tile_starts, height, ty, tx)

@@ -4,6 +4,7 @@
     scene = Scene.from_glb("helmet.glb")          # tensors on cuda
     splats = scene.convert(resolution=512)
     img = scene.render(splats, eye=[0, 0, 3])
+    split = scene.render_split(splats, eye=[0, 0, 3])   # mesh | splats
     scene.export_ply(splats, "helmet.ply", fmt=1)
 
 ``Scene.from_glb(path, device="cpu")`` runs the same code on the CPU; every
@@ -16,14 +17,18 @@ import dataclasses
 import threading
 
 import numpy as np
+import torch
 
 from .io import gltf, ply
 from .ops.conversion import (
     ConversionConfig, calibrate, convert, convert_packed,
 )
-from .render.pipeline import FrameConfig, calibrate_frame, render_frame
+from .render.pipeline import (
+    FrameConfig, calibrate_frame, render_frame, render_split_screen,
+)
 from .types import (
-    RenderMode, SplatFormat, Splats, compose_trs, make_camera, resolve_device,
+    RenderMode, SplatFormat, Splats, TriangleMesh, compose_trs, make_camera,
+    resolve_device,
 )
 
 
@@ -105,11 +110,35 @@ class Scene:
         return render_frame(splats, cam, fc, light=light,
                             model_to_world=model_transform)
 
-    def render_split(self, *args, **kwargs):
-        raise NotImplementedError(
-            "render_split needs the mesh rasterizer, which the port brings "
-            "in its mesh-raster slice"
+    def render_split(self, splats: Splats, eye, center=(0, 0, 0),
+                     up=(0, 1, 0), width=1280, height=720, fov_deg=60.0,
+                     mode: RenderMode = RenderMode.ALBEDO, light=None,
+                     split_x: float = 0.5):
+        """Split-screen mesh-vs-splat compare on the splats' device: left of
+        ``split_x`` the rasterized source mesh, right of it the splats.
+        Several primitives are compared as one merged triangle soup with
+        the first primitive's material."""
+        if not self.primitives:
+            raise ValueError("split-screen compare needs mesh primitives")
+        dev = splats.device
+        meshes = [m for m, _, _ in self.primitives]
+        mesh = TriangleMesh(**{
+            f.name: torch.cat([getattr(m, f.name).to(dev) for m in meshes])
+            for f in dataclasses.fields(TriangleMesh)})
+        material = self.primitives[0][1]
+        cam = make_camera(eye=list(eye), center=list(center), up=list(up),
+                          fov_y_rad=np.deg2rad(fov_deg), width=width,
+                          height=height, device=dev)
+        res_target = self.last_config.resolution if self.last_config else 1
+        std = self.last_config.gaussian_std if self.last_config else 1.0
+        fc = FrameConfig(
+            width=width, height=height, render_mode=mode,
+            splat_format=self.splat_format, gaussian_std=std,
+            resolution_target=res_target, has_pbr=self.has_pbr,
         )
+        fc = calibrate_frame(splats, cam, fc)
+        return render_split_screen(splats, mesh, material, cam, fc,
+                                   light=light, split_x=split_x)
 
     def export_ply(self, splats: Splats, path, fmt: int = 0,
                    background: bool = False):

@@ -1,9 +1,9 @@
 """State carried across from the JAX package: its pytrees (``TriangleMesh``,
-``Material``, ``Splats``, ``Camera``, ``ProjectedSplats``), given as dicts of
-numpy arrays or as objects whose fields read as arrays, become the port's
-dataclasses of tensors on a chosen device; ``splats_to_numpy`` and
-``gbuffer_to_numpy`` go the other way. The system has no weights: the mesh,
-the material and the splats are its state.
+``Material``, ``Splats``, ``Camera``, ``ProjectedSplats``, ``ShadowCubemap``),
+given as dicts of numpy arrays or as objects whose fields read as arrays,
+become the port's dataclasses of tensors on a chosen device;
+``splats_to_numpy`` and ``gbuffer_to_numpy`` go the other way. The system
+has no weights: the mesh, the material and the splats are its state.
 
 This module imports neither jax nor the JAX package: it reads fields by name
 with ``numpy.asarray``.
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .ops.projection import ProjectedSplats
+from .render.shadows import ShadowCubemap
 from .types import Camera, Material, Splats, TriangleMesh, resolve_device
 
 
@@ -67,6 +68,12 @@ def camera(src, device="cuda") -> Camera:
 
 def projected(src, device="cuda") -> ProjectedSplats:
     return from_numpy(ProjectedSplats, src, device)
+
+
+def shadow_cubemap(src, device="cuda"):
+    """The JAX package's ShadowCubemap (faces, light_pos, far) -> the
+    port's."""
+    return from_numpy(ShadowCubemap, src, device)
 
 
 def cameras(src, device="cuda") -> list:

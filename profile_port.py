@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Where mesh2splat_torch's time goes on a CUDA card: torch.profiler over
 chip_smoke.py's full-size workload (20k-triangle sphere, resolution 512,
-1080p ALBEDO render, one fit_splats step over 2 views at 1080p), after a
-warm-up.
+1080p ALBEDO render, 1080p FINAL render with shadows, one fit_splats step
+over 2 views at 1080p), after a warm-up.
 
     python3 profile_port.py [--rows 15]
 
-Prints, for `Scene.convert`, `Scene.render` and the training step
+Prints, for `Scene.convert`, each `Scene.render` and the training step
 separately, the host wall time of the profiled call, the summed device
 time, and the device ops with the most device time. Needs a card.
 """
@@ -74,6 +74,11 @@ def main():
             lambda: scene.render(sp, eye=cs.EYE, width=cs.W_PX,
                                  height=cs.H_PX, fov_deg=60.0,
                                  mode=RenderMode.ALBEDO), args.rows)
+    profile("Scene.render(1920x1080, FINAL, shadows=True)",
+            lambda: scene.render(sp, eye=cs.EYE, width=cs.W_PX,
+                                 height=cs.H_PX, fov_deg=60.0,
+                                 mode=RenderMode.FINAL, shadows=True),
+            args.rows)
 
     from mesh2splat_torch.train import fit as TFIT
 

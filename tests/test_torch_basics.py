@@ -180,15 +180,16 @@ import mesh2splat_torch
 for m in pkgutil.walk_packages(mesh2splat_torch.__path__, "mesh2splat_torch."):
     importlib.import_module(m.name)
 assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
-for name in ("train.fit", "utils.checkpoint", "render.rasterize"):
+for name in ("train.fit", "utils.checkpoint", "render.rasterize",
+             "render.shadows", "render.mesh_raster", "ops.sampling"):
     assert "mesh2splat_torch." + name in sys.modules, name
 print("ok")
 """
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, train/ and utils/ included, imports with
-    jax and the JAX package blocked."""
+    """Every module of the port, train/, utils/, shadows and the mesh
+    raster included, imports with jax and the JAX package blocked."""
     out = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                          text=True, check=True)
     assert out.stdout.strip().endswith("ok")
@@ -199,7 +200,9 @@ def test_cuda_requested_without_card_raises(monkeypatch, tmp_path):
     never moves to the CPU silently."""
     from mesh2splat_torch.scene import Scene
 
+    from mesh2splat_torch.render.mesh_raster import rasterize_mesh
     from mesh2splat_torch.render.rasterize import rasterize_dense
+    from mesh2splat_torch.render.shadows import render_shadow_cubemap
     from mesh2splat_torch.train import fit
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -210,11 +213,14 @@ def test_cuda_requested_without_card_raises(monkeypatch, tmp_path):
         Scene.from_glb(str(tmp_path / "absent.glb"))
     with pytest.raises(RuntimeError, match="cuda"):
         TT.compose_trs()
-    # the training entry points and the dense rasterizer check the device
-    # before they touch their inputs
+    # the training entry points, the dense rasterizer, the shadow cubemap
+    # and the mesh rasterizer check the device before they touch their
+    # inputs
     for call in (lambda: fit.fit_splats(None, [], None, fit.FitConfig()),
                  lambda: fit.fit_textures(None, None, None, [], None,
                                           fit.FitTexturesConfig()),
-                 lambda: rasterize_dense(None, 8, 8)):
+                 lambda: rasterize_dense(None, 8, 8),
+                 lambda: render_shadow_cubemap(None, [0, 0, 0], 1.0, 1.0),
+                 lambda: rasterize_mesh(None, None, None, 8, 8)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()

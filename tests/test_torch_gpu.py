@@ -1,6 +1,6 @@
 """mesh2splat_torch's CUDA kernels against their plain PyTorch versions on
-the card, and the slice (conversion, and a training step) on the card
-against the same code on the CPU.
+the card, and the slice (conversion, a training step, a shadowed FINAL
+frame, an OVERDRAW frame) on the card against the same code on the CPU.
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 where there is none (run them with ``python -m pytest tests -m gpu`` on a
 machine with an H100)."""
@@ -168,3 +168,79 @@ def test_slice_cuda_matches_cpu(cuda):
     assert torch.equal(outs[0][0], outs[1][0])
     for a, b in zip(outs[0][1:], outs[1][1:]):
         assert float((a - b).abs().max()) <= 2e-5
+
+
+def _cubemap_pairs(device):
+    """The band-clamped "depth" pairs of a 128^2 tiled shadow cubemap."""
+    from mesh2splat_torch.render import shadows as TS
+
+    sp = state.splats(_random_splats(3000, seed=5), device)
+    light = torch.tensor([0.3, 0.2, 2.5], device=device)
+    merged, band, need = TS._shadow_prep_fused(
+        sp, light, torch.tensor(10.0, device=device), 1.0, 128)
+    return TB.bin_pairs(merged, 128, 6 * 128, TB.round_pow2_budget(need),
+                        variant="depth", band_ty=band)
+
+
+def test_kernels_k5_k6_match_plain(cuda):
+    """K5 on the cubemap's tall image and K6 on a 200x130 frame against
+    their plain versions on the same CUDA tensors: the same bits."""
+    b = _cubemap_pairs(cuda)
+    ty, tx = TB.tiles_for(128, 6 * 128)
+    got = kernels.min_depth(b.fields, b.tile_starts, height=6 * 128, ty=ty,
+                            tx=tx)
+    ref = TCOMP.min_depth_plain(b.fields, b.tile_starts, 6 * 128, ty, tx)
+    assert 0.0 < float((got < 1e37).float().mean()) < 1.0
+    assert torch.equal(got, ref)
+
+    from mesh2splat_torch.ops.projection import project_splats
+
+    cam = make_camera([0, 0, 3], [0, 0, 0], [0, 1, 0], 1.0, 200, 130,
+                      device=cuda)
+    proj = project_splats(state.splats(_random_splats(), cuda), cam)
+    b = TB.bin_pairs(proj, 200, 130, variant="overdraw")
+    ty, tx = TB.tiles_for(200, 130)
+    got = kernels.overdraw(b.fields, b.tile_starts, height=130, ty=ty, tx=tx)
+    ref = TCOMP.overdraw_plain(b.fields, b.tile_starts, 130, ty, tx)
+    assert float(got.max()) >= 5
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("mode", ["FINAL", "OVERDRAW"])
+def test_frame_cuda_matches_cpu(cuda, mode):
+    """A FINAL frame with shadows (a 128^2 cubemap, which "auto" renders
+    tiled for more than 65,536 splats: K5 on the card) and an OVERDRAW
+    frame (K6) of converted splats,
+    on the card against the CPU: the cubemaps' coverage on >= 99.9 % of
+    pixels and depth within 1e-5, the images within 1e-3."""
+    from mesh2splat_torch.render import shadows as TS
+    from mesh2splat_torch.render.pipeline import FrameConfig, render_frame
+    from mesh2splat_torch.types import RenderMode
+
+    mesh, mat = sphere_mesh(1000, seed=4, tex=64)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        tm, tmat = state.mesh(mesh, dev), state.material(mat, dev)
+        cfg = TC.calibrate(tm, *tm.bbox(), TC.ConversionConfig(256, 6))
+        sp = TC.convert(tm, tmat, *tm.bbox(), cfg)
+        assert sp.capacity > 65536
+        cam = make_camera([0.3, 0.4, 2.8], [0, 0, 0], [0, 1, 0], 1.0, 160,
+                          120, device=dev)
+        fc = FrameConfig(160, 120, RenderMode[mode], gaussian_std=1.0,
+                         resolution_target=256, shadows=True,
+                         shadow_size=128)
+        faces = None
+        if mode == "FINAL":   # the cubemap render_frame takes
+            faces = TS.render_shadow_cubemap(
+                sp, [2.0, 2.0, 2.0], 25.0, fc.std_dev, size=128,
+                device=dev).faces.cpu()
+        outs.append((faces, render_frame(sp, cam, fc).cpu()))
+    (f_c, img_c), (f_p, img_p) = outs
+    if mode == "FINAL":
+        cov_c, cov_p = f_c < 1.0, f_p < 1.0
+        assert float(cov_p.float().mean()) > 0.005
+        assert float((cov_c == cov_p).float().mean()) >= 0.999
+        both = cov_c & cov_p
+        assert float((f_c - f_p)[both].abs().max()) <= 1e-5
+    assert float(img_p.max()) > 0.0
+    assert float((img_c - img_p).abs().max()) <= 1e-3

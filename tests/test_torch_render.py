@@ -92,26 +92,44 @@ def _projected_with_ties(n=400, seed=3):
 
 
 @pytest.mark.parametrize("variant,c_capacity", [
-    ("full", 0), ("albedo", 0), ("full", 64)])
+    ("full", 0), ("albedo", 0), ("full", 64), ("depth", 0),
+    ("depth-band", 0), ("overdraw", 0)])
 def test_binning_exact(variant, c_capacity):
     """Same numpy ProjectedSplats in, identical tile ranges, counts, drops
-    and pair fields out (the stable torch.sort orders as lax.sort does)."""
+    and pair fields out (the stable torch.sort orders as lax.sort does).
+    The "depth" and "overdraw" variants are binned as the JAX package bins
+    them for shadows and overdraw (without its row-id key); "depth-band"
+    adds a per-splat tile-row band (the cubemap's face scissor): one tile
+    row for some splats, both for others."""
     p = _projected_with_ties()
     from mesh2splat_tpu.ops.projection import ProjectedSplats as JP
 
-    ref = JB.bin_pairs(JP(**{k: jnp.asarray(v) for k, v in p.items()}), W, H,
-                       c_capacity, variant=variant)
+    jp = JP(**{k: jnp.asarray(v) for k, v in p.items()})
+    variant, banded = variant.split("-")[0], variant.endswith("band")
+    kw_j, kw_t = {}, {}
+    if banded:
+        lo = np.random.default_rng(0).integers(0, 2, p["depth"].shape[0],
+                                               dtype=np.int32)
+        hi = np.where(np.arange(lo.shape[0]) % 3 == 0, 1, lo).astype(np.int32)
+        kw_j["band_ty"] = (jnp.asarray(lo), jnp.asarray(hi))
+        kw_t["band_ty"] = (torch.from_numpy(lo), torch.from_numpy(hi))
+    if variant in ("depth", "overdraw"):
+        kw_j["differentiable"] = False
+    ref = JB.bin_pairs(jp, W, H, c_capacity, variant=variant, **kw_j)
     out = TB.bin_pairs(state.projected(p, "cpu"), W, H, c_capacity,
-                       variant=variant)
+                       variant=variant, **kw_t)
     np.testing.assert_array_equal(out.tile_starts.numpy(),
                                   np.asarray(ref.tile_starts))
     assert int(out.num_pairs) == int(ref.num_pairs) > 0
     assert int(out.dropped_pairs) == int(ref.dropped_pairs)
     assert (c_capacity == 64) == (int(out.dropped_pairs) > 0)
     np.testing.assert_array_equal(out.fields.numpy(), np.asarray(ref.fields))
-    assert int(TB.required_overflow(state.projected(p, "cpu"), W, H)) == \
-        int(JB.required_overflow(JP(**{k: jnp.asarray(v)
-                                       for k, v in p.items()}), W, H))
+    assert int(TB.required_overflow(state.projected(p, "cpu"), W, H,
+                                    kw_t.get("band_ty"))) == \
+        int(JB.required_overflow(jp, W, H, kw_j.get("band_ty")))
+    if banded:   # the band removes pairs
+        assert int(out.num_pairs) < int(TB.bin_pairs(
+            state.projected(p, "cpu"), W, H, variant=variant).num_pairs)
 
 
 @pytest.mark.parametrize("albedo_only,dense", [
@@ -166,28 +184,77 @@ def test_deferred_resolve_matches(mode):
 
 
 def test_unported_options_raise():
-    """K5, K6 and the mesh raster still raise; the dense rasterizer
-    (use_tiled=False) and the composite's gradient (K4) now run."""
+    """Every option that once raised now runs: FINAL with shadows (tiled
+    cubemap, K5's plain version), the mesh depth prepass, the tiled
+    OVERDRAW view (K6's plain version), the dense rasterizer
+    (use_tiled=False) and the composite's gradient (K4)."""
     from mesh2splat_torch.render.pipeline import FrameConfig, render_frame
     from mesh2splat_torch.render.tiled import rasterize_tiled
+    from torch_parity import sphere_mesh
 
     sp = state.splats(random_splats(20), "cpu")
     cam = state.camera(j_camera(**CAM), "cpu")
-    for cfg, what in ((FrameConfig(W, H, TRM.FINAL, shadows=True), "K5"),
-                      (FrameConfig(W, H, depth_test_mesh=True), "mesh")):
-        with pytest.raises(NotImplementedError, match=what):
-            render_frame(sp, cam, cfg)
+    mesh, _ = sphere_mesh(200, seed=2)
+    tm = state.mesh(mesh, "cpu")
+    for cfg, kw in ((FrameConfig(W, H, TRM.FINAL, shadows=True,
+                                 shadow_size=512), {}),
+                    (FrameConfig(W, H, depth_test_mesh=True), {"mesh": tm})):
+        img = render_frame(sp, cam, cfg, **kw)
+        assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
     dense = render_frame(sp, cam, FrameConfig(W, H, use_tiled=False))
     tiled = render_frame(sp, cam, FrameConfig(W, H))
     assert dense.shape == (H, W, 3) and float(dense.max()) > 0.05
     # the tiled path against its ground truth (tests/test_tiled.py's 5e-3)
     assert float((dense - tiled).abs().max()) <= 5e-3
     proj = t_project(sp, cam)
-    with pytest.raises(NotImplementedError, match="K6"):
-        rasterize_tiled(proj, W, H, render_mode=TRM.OVERDRAW)
+    over = rasterize_tiled(proj, W, H, render_mode=TRM.OVERDRAW)
+    assert float(over["albedo"][..., 3].max()) >= 0.01
     # no pair in any tile: the K4 plain path returns an all-zero gradient
     fields = torch.ones((24, 128), requires_grad=True)
     out = TCOMP.composite_tiles(fields, torch.zeros(9, dtype=torch.int32), H,
                                 2, 4)
     out.sum().backward()
     assert fields.grad.shape == (24, 128) and not fields.grad.any()
+
+
+def test_overdraw_plain_matches():
+    """K6's plain version against the JAX overdraw kernel in interpret mode
+    on the same binned pairs: the same counts."""
+    proj = j_proj(random_splats(300, seed=123), fmt=1)
+    binned = JB.bin_pairs(proj, W, H, 0, variant="overdraw",
+                          differentiable=False)
+    ty, tx = JB.tiles_for(W, H)
+    ref = np.asarray(JCOMP.overdraw_tiles(
+        binned, jnp.asarray([H], jnp.int32), ty, tx, True))
+    out = TCOMP.overdraw_tiles(
+        TB.BinnedPairs(*(torch.from_numpy(np.array(getattr(binned, f)))
+                         for f in ("fields", "tile_starts", "num_pairs",
+                                   "dropped_pairs"))), H, ty, tx).numpy()
+    assert ref.max() >= 5
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_overdraw_tiled_matches():
+    """rasterize_tiled(OVERDRAW) against the JAX package and against the
+    port's dense rasterizer (tests/test_tiled.py's check), within 1e-5."""
+    from mesh2splat_tpu.render.tiled import rasterize_tiled as j_tiled
+    from mesh2splat_torch.render.rasterize import rasterize_dense
+    from mesh2splat_torch.render.tiled import rasterize_tiled
+
+    sp = random_splats(300, seed=123)
+    ref = j_tiled(j_proj(sp, fmt=1), W, H, render_mode=JRM.OVERDRAW,
+                  interpret=True)
+    proj = t_project(state.splats(sp, "cpu"),
+                     state.camera(j_camera(**CAM), "cpu"),
+                     splat_format=TSF.PLY_3DGS)
+    out = rasterize_tiled(proj, W, H, render_mode=TRM.OVERDRAW)
+    dense = rasterize_dense(proj, W, H, render_mode=TRM.OVERDRAW,
+                            device="cpu")
+    for k in ("albedo", "position", "normal", "depth", "metal_rough",
+              "transmittance"):
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(out["albedo"].numpy(),
+                               dense["albedo"].numpy(), atol=1e-5)
+    assert int(out["dropped_pairs"]) == int(ref["dropped_pairs"]) == 0
+    assert float(out["albedo"][..., 3].max()) >= 0.05
