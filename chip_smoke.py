@@ -22,13 +22,17 @@ without a card:
      compare; the kernels' launch counters are zeroed before each path and
      read after it, and no render may drop a class-C pair;
   4. each kernel against its plain PyTorch version on the same CUDA tensors,
-     at the shapes of phase 3;
+     at the shapes of phase 3 (K3 also the pairs each tile walked; K4's
+     state pass its per-segment states), with the tile histograms of the
+     composite's inputs;
   5. the whole slice on the card against the same code on the CPU, small:
      conversion and render, one fit_splats loss and gradient, one
      fit_textures gradient, the tiled cubemap at 128^2, the FINAL frame
      with shadows, the OVERDRAW, depth-tested and split-screen frames;
-  6. kernel times (CUDA events) beside the plain versions and the bound,
-     the training step's time and the render paths' times.
+  6. kernel times (CUDA events) beside the plain versions and the bound
+     (and the naive walk's figure of PRs 1-3), K3's and K4's time on their
+     fullest tile alone, each kernel's registers, spills, shared memory and
+     resident warps, the training step's time and the render paths' times.
 It ends with a JSON line of kernel numbers, the card's name and power limit,
 and {"ok": true, "device": {...}} as the last line.
 """
@@ -209,32 +213,102 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def covered_pairs(torch, fields, starts, kw, tile_batch=256):
-    """The (pair, pixel) combinations K4 finds covered on these inputs, for
-    its operations bound: the plain version's coverage over every chunk of
-    every tile (K4 has no early exit)."""
+def covered_pairs(torch, fields, starts, kw, variant, chunks=None,
+                  tile_batch=256):
+    """The (pair, pixel) combinations the plain coverage test (g > 0) finds
+    covered on these inputs, for the operations bounds: over every chunk of
+    every tile, or over chunks [lo, hi) of each tile where ``chunks`` gives
+    the per-tile (lo, hi) (K3's walked chunks, K4's state pass). Returns
+    (covered, pairs in those chunks)."""
     from mesh2splat_torch.render import binning as TB
     from mesh2splat_torch.render import composite as TCOMP
 
-    idx = TB.field_index("albedo" if kw["albedo_only"] else "full")
+    idx = TB.field_index(variant)
     first, ends, aligned, num_chunks = TCOMP._tile_ranges(starts)
+    c_lo, c_hi = chunks if chunks is not None else (
+        torch.zeros_like(num_chunks), num_chunks)
     pix = TCOMP._pixel_coords(fields.device)
     lane = torch.arange(TCOMP.CHUNK, device=fields.device)
     n_tiles = kw["ty"] * kw["tx"]
     total = torch.zeros((), dtype=torch.int64, device=fields.device)
+    pairs = torch.zeros((), dtype=torch.int64, device=fields.device)
     for b0 in range(0, n_tiles, tile_batch):
         tiles = torch.arange(b0, min(b0 + tile_batch, n_tiles),
                              device=fields.device)
         tjf, py0 = TCOMP._tile_origin(tiles, kw["tx"], kw["height"])
         s, e, al = first[tiles], ends[tiles], aligned[tiles]
-        for c in range(int(num_chunks[tiles].max())):
+        lo, hi = c_lo[tiles], c_hi[tiles]
+        for c in range(int(hi.max()) if tiles.numel() else 0):
             rows = al[:, None] + c * TCOMP.CHUNK + lane
-            live = (rows >= s[:, None]) & (rows < e[:, None])
+            live = ((rows >= s[:, None]) & (rows < e[:, None])
+                    & ((c >= lo) & (c < hi))[:, None])
             st = fields[:, rows.clamp(max=fields.shape[1] - 1)]
             g, _, _ = TCOMP._chunk_planes(lambda name: st[idx[name]][..., None],
                                           tjf, py0, pix, live[..., None])
             total += (g > 0).sum()
-    return int(total)
+            pairs += live.sum()
+    return int(total), int(pairs)
+
+
+def tile_histogram(torch, starts):
+    """Busy tiles, the fullest tile's pairs and index, and the mean pairs
+    of a busy tile."""
+    n = (starts[1:] - starts[:-1]).long()
+    busy = n[n > 0]
+    return {"tiles": int(n.numel()), "busy": int(busy.numel()),
+            "fullest": int(n.max()), "fullest_tile": int(n.argmax()),
+            "busy_mean": float(busy.float().mean()) if busy.numel() else 0.0}
+
+
+def fullest_alone(torch, starts):
+    """tile_starts with every tile but the fullest empty."""
+    n = starts[1:] - starts[:-1]
+    f = int(n.argmax())
+    i = torch.arange(starts.shape[0], device=starts.device)
+    return torch.where(i <= f, starts[f], starts[f + 1]).to(
+        torch.int32).contiguous()
+
+
+PTXAS_ENTRIES = (   # mangled-name piece -> kernel row
+    ("texel_rows_kernel", "texel_rows"), ("fragment_kernel", "fragment_apply"),
+    ("composite_kernelILb1E", "composite_albedo"),
+    ("composite_kernelILb0E", "composite_full"),
+    ("composite_bwd_kernelILb1E", "composite_bwd_albedo"),
+    ("composite_bwd_kernelILb0E", "composite_bwd_full"),
+    ("segment_state_kernelILb1E", "composite_bwd_state_albedo"),
+    ("segment_state_kernelILb0E", "composite_bwd_state_full"),
+    ("single_channel_kernelILb1E", "min_depth"),
+    ("single_channel_kernelILb0E", "overdraw"))
+
+
+def ptxas_resources(report):
+    """{kernel row: (registers, spill store + load bytes, static shared
+    bytes)} from build.report's -Xptxas -v lines (the largest over a
+    kernel's instantiations)."""
+    import re
+
+    out, cur = {}, None
+    for rep in report.values():
+        for line in rep["ptxas"]:
+            m = re.search(r"entry function '([^']+)'", line)
+            if m:
+                cur = next((row for piece, row in PTXAS_ENTRIES
+                            if piece in m.group(1)), None)
+                continue
+            if cur is None:
+                continue
+            regs, spill, smem = out.get(cur, (0, 0, 0))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                spill = max(spill, int(m.group(1)) + int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs = max(regs, int(m.group(1)))
+                m2 = re.search(r"(\d+) bytes smem", line)
+                smem = max(smem, int(m2.group(1)) if m2 else 0)
+            out[cur] = (regs, spill, smem)
+    return out
 
 
 def training_inputs(torch, TFIT, sp, mult, dev):
@@ -298,7 +372,8 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
         _, hist = run("fit_splats",
                       lambda: TFIT.fit_splats(start, cams, targets, fit_cfg),
                       {"composite_albedo": 2 * FIT_STEPS,
-                       "composite_bwd_albedo": 2 * FIT_STEPS},
+                       "composite_bwd_albedo": 2 * FIT_STEPS,
+                       "composite_bwd_state_albedo": 2 * FIT_STEPS},
                       renders=2 * FIT_STEPS)
         fit_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -333,7 +408,8 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
                                        width=TEX_PX, height=TEX_PX)),
             {"texel_rows": TEX_STEPS, "fragment_apply": TEX_STEPS,
              "composite_albedo": 2 * TEX_STEPS,
-             "composite_bwd_albedo": 2 * TEX_STEPS},
+             "composite_bwd_albedo": 2 * TEX_STEPS,
+             "composite_bwd_state_albedo": 2 * TEX_STEPS},
             renders=2 * TEX_STEPS)
         tex_s = time.perf_counter() - t0
         tex = grey.base_color.clone().requires_grad_(True)
@@ -370,7 +446,8 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
             return torch.autograd.grad(fwd(s2).mean(), leaves)
 
         grads = run("grad_albedo", bench_grad,
-                    {"composite_albedo": 1, "composite_bwd_albedo": 1},
+                    {"composite_albedo": 1, "composite_bwd_albedo": 1,
+                     "composite_bwd_state_albedo": 1},
                     renders=1)
         check(all(bool(torch.isfinite(g).all()) for g in grads),
               "1080p gradient not finite")
@@ -394,7 +471,8 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
             return torch.autograd.grad(loss, [pos, color])
 
         g_full = run("grad_full", grad_full,
-                     {"composite_full": 1, "composite_bwd_full": 1},
+                     {"composite_full": 1, "composite_bwd_full": 1,
+                      "composite_bwd_state_full": 1},
                      renders=1)
         check(all(bool(torch.isfinite(g).all()) for g in g_full),
               "five-target gradient not finite")
@@ -773,16 +851,19 @@ def main():
         k3_inputs[variant] = (fields, starts, kw3)
         w = torch.empty(starts.shape[0] - 1, dtype=torch.int32, device=dev)
         img_k = kernels.composite_forward(fields, starts, walked=w, **kw3)
-        img_p = TCOMP.composite_plain(fields, starts, kw3["height"],
-                                      kw3["ty"], kw3["tx"],
-                                      kw3["albedo_only"], tile_batch=512)
-        walked[variant] = int(w.sum())
+        img_p, w_p = TCOMP.composite_plain(fields, starts, kw3["height"],
+                                           kw3["ty"], kw3["tx"],
+                                           kw3["albedo_only"], tile_batch=512,
+                                           return_walked=True)
+        walked[variant] = w
+        same = bool(torch.equal(w, w_p))
         errs[f"composite_{variant}"] = float((img_k - img_p).abs().max())
         log(f"K3 composite {variant}: {kw3['ty'] * kw3['tx']} tiles, "
-            f"{int(starts[-1])} pairs ({walked[variant]} walked before the "
-            f"early exits), max |diff| {errs[f'composite_{variant}']:.3g} "
-            "over all tiles")
-        check(errs[f"composite_{variant}"] <= 1e-3,
+            f"{int(starts[-1])} pairs ({int(w.sum())} walked before the "
+            f"early exits, equal to the plain version's tile for tile: "
+            f"{same}), max |diff| {errs[f'composite_{variant}']:.3g} over all "
+            f"tiles; tiles {tile_histogram(torch, starts)}")
+        check(errs[f"composite_{variant}"] <= 1e-3 and same,
               f"K3 {variant} differs from its plain version")
 
     k4_inputs, covered, k4_plain_ms = {}, {}, {}
@@ -806,7 +887,8 @@ def main():
         e1.record()
         e1.synchronize()
         k4_plain_ms[variant] = e0.elapsed_time(e1)
-        covered[variant] = covered_pairs(torch, fields, starts, kw4)
+        covered[variant] = covered_pairs(torch, fields, starts, kw4,
+                                         variant)[0]
         nf = len(TB.VARIANT_FIELDS[variant])
         scale = float(d_p.abs().max())
         err = float((d_k - d_p).abs().max())
@@ -817,15 +899,41 @@ def main():
         row_rel = row_err / row_scale.clamp(min=1e-30)
         errs[f"composite_bwd_{variant}"] = err
         errs[f"composite_bwd_{variant}_rel"] = float(row_rel.max())
+        again = kernels.composite_backward(fields, starts, ct, res, **kw4)
+        rerun_equal = bool(torch.equal(d_k, again))
         log(f"K4 composite backward {variant}: {kw4['ty'] * kw4['tx']} "
             f"tiles, {int(starts[-1])} pairs, {covered[variant]} covered "
             f"(pair, pixel), max |diff| {err:.3g} of max |dfields| "
             f"{scale:.3g}; per row max |diff| / max |d| "
             f"{[float(f'{r:.3g}') for r in row_rel.tolist()]}, padding rows "
-            f"zero {not bool(d_k[nf:].any())}")
+            f"zero {not bool(d_k[nf:].any())}, a second run bit-equal "
+            f"{rerun_equal}; tiles {tile_histogram(torch, starts)}")
         check(bool((row_err <= 1e-3 * row_scale).all())
-              and not bool(d_k[nf:].any()),
+              and not bool(d_k[nf:].any()) and rerun_equal,
               f"K4 {variant} differs from its plain version")
+        # the state pass against its plain version, on the rows the main
+        # pass reads (every segment but a tile's last)
+        st_k, _ = kernels.composite_bwd_states(fields, starts, ct, **kw4)
+        e0.record()
+        st_p, last = TCOMP.segment_states_plain(
+            fields, starts, ct, kw4["height"], kw4["ty"], kw4["tx"],
+            kw4["albedo_only"], kernels.SEG_CHUNKS, tile_batch=32)
+        e1.record()
+        e1.synchronize()
+        k4_plain_ms[f"state_{variant}"] = e0.elapsed_time(e1)
+        keep = ~last
+        st_diff = (st_k[:st_p.shape[0]][keep] - st_p[keep]).abs().amax(
+            dim=(0, 2))
+        st_scale = st_p[keep].abs().amax(dim=(0, 2)).clamp(min=1.0)
+        errs[f"composite_bwd_state_{variant}"] = float(st_diff.max())
+        errs[f"composite_bwd_state_{variant}_rel"] = float(
+            (st_diff / st_scale).max())
+        log(f"K4 state pass {variant}: {int(keep.sum())} of "
+            f"{st_p.shape[0]} segments' states, max |diff| per state "
+            f"{[float(f'{d:.3g}') for d in st_diff.tolist()]} (of max "
+            f"{[float(f'{d:.3g}') for d in st_scale.tolist()]})")
+        check(bool((st_diff <= 1e-4 * st_scale).all()),
+              f"K4 {variant} state pass differs from its plain version")
 
     k56_inputs, k56_plain_ms = {}, {}
     for name, plain in (("min_depth", TCOMP.min_depth_plain),
@@ -885,13 +993,24 @@ def main():
     (rec, meta), kw1 = cap.seen["texel_rows"]
     (rec2, taps, meta2), kw2 = cap.seen["fragment_apply"]
     cap_slots = meta.shape[1]
+    resources = ptxas_resources(report)
     rows = []
 
     def entry(name, source, replaces, ms, plain_ms, nbytes, nops, err,
-              path="main", rel_err=None):
+              path="main", rel_err=None, walk_ops=None, fullest_ms=None):
+        """One kernel's row. Its bound: the larger of the bytes it must move
+        and, per kind of operation, the f32 operations the function needs
+        on this run's data (per pair, and per (pair, pixel) the pair
+        covers); walk_ms the same with the naive walk's operations (every
+        (pair, pixel) of a walked chunk), the figure of PRs 1-3."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_FLOPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
+        walk = max(t_bytes, (walk_ops if walk_ops is not None else nops)
+                   / F32_FLOPS_PER_S * 1e3)
+        regs, spill, smem = resources.get(name, (None, None, None))
+        warps = (8 * kernels.resident_blocks(name)
+                 if name.startswith("composite") else None)
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paths[path][name], path=path,
@@ -904,6 +1023,9 @@ def main():
             bound_ms=bound,
             bound_us=bound * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
+            walk_ms=walk, fullest_tile_ms=fullest_ms, registers=regs,
+            spill_bytes=spill, static_smem_bytes=smem,
+            resident_warps_per_sm=warps,
             library_ms=None))
 
     entry("texel_rows", "mesh2splat_torch/kernels/csrc/texel_rows.cu",
@@ -921,16 +1043,27 @@ def main():
           58 * n_tri * 4 + taps.numel() * 4 + 4 * cap_slots * 4
           + 20 * cap_slots * 4,
           cap_slots * 400, errs["fragment_apply"])
-    for variant, n_fields in (("full", 18), ("albedo", 9)):
+    # Operations, one rule for K3-K6: per pair the conic's axes and the
+    # plane coefficients (~60; K4 ~100 with the chain to the mean and conic
+    # rows), and per covered (pair, pixel) the coverage test (the falloff
+    # polynomial 10, the quad's u and v 8, the test 4: 22) plus the terms
+    # the kernel computes there, counted from its arithmetic: K3 15 albedo /
+    # 39 full (falloff, chains, accumulations), K4 48 / 98, K4's state pass
+    # 17 / 41, K5 and K6 3. The naive walk (walk_ms) counts the 22 at every
+    # (pair, pixel) of a walked chunk instead.
+    for variant, n_fields, per_px in (("full", 18, 39), ("albedo", 9, 15)):
         fields, starts, kw3 = k3_inputs[variant]
         pairs = int(starts[-1])
         ty, tx = kw3["ty"], kw3["tx"]
-        # each walked (pair, pixel): the falloff polynomial (10 flops), the
-        # quad's u and v (8) and the coverage test (4); per walked pair the
-        # conic's axes and the plane coefficients (~60)
-        ops = walked[variant] * (1024 * 22 + 60)
+        w = walked[variant].long()
+        first, _, aligned, _ = TCOMP._tile_ranges(starts)
+        hi = torch.where(w > 0, torch.div(first + w - aligned + 127, 128,
+                                          rounding_mode="floor"), 0)
+        cov, n_walked = covered_pairs(torch, fields, starts, kw3, variant,
+                                      (torch.zeros_like(hi), hi))
         nbytes = (n_fields * pairs * 4 + (ty * tx + 1) * 4
                   + 16 * ty * 32 * tx * 32 * 4)
+        alone = fullest_alone(torch, starts)
         entry(f"composite_{variant}",
               "mesh2splat_torch/kernels/csrc/composite.cu",
               "mesh2splat_tpu/render/composite.py:351",
@@ -939,39 +1072,67 @@ def main():
               event_ms(lambda: TCOMP.composite_plain(
                   fields, starts, kw3["height"], ty, tx, kw3["albedo_only"],
                   tile_batch=512), 3, warm=1),
-              nbytes, ops, errs[f"composite_{variant}"])
-    for variant, n_fields, per_px in (("albedo", 9, 48), ("full", 18, 98)):
+              nbytes, n_walked * 60 + cov * (22 + per_px),
+              errs[f"composite_{variant}"],
+              walk_ops=n_walked * (1024 * 22 + 60),
+              fullest_ms=event_ms(lambda: kernels.composite_forward(
+                  fields, alone, **kw3), 20))
+        log(f"K3 {variant}: {n_walked} pairs walked, {cov} covered "
+            f"(pair, pixel) in the walked chunks")
+    for variant, n_fields, per_px, per_px_state in (("albedo", 9, 48, 17),
+                                                    ("full", 18, 98, 41)):
         fields, starts, ct, res, kw4 = k4_inputs[variant]
         pairs = int(starts[-1])
         ty, tx = kw4["ty"], kw4["tx"]
-        # every pair of every tile is walked (no early exit): the coverage
-        # test per (pair, pixel) as K3 (22 flops), the chain and reduction
-        # terms per covered (pair, pixel) (48 albedo, 98 full, counted from
-        # the kernel's arithmetic), per pair the plane coefficients and
-        # the chain to the mean and conic (~100)
-        ops = pairs * (1024 * 22 + 100) + covered[variant] * per_px
         n_ct = 4 if kw4["albedo_only"] else 14
         n_res = 1 if kw4["albedo_only"] else 2
+        px_bytes = ty * 32 * tx * 32 * 4
         nbytes = (n_fields * pairs * 4 + (ty * tx + 1) * 4
-                  + (n_ct + n_res) * ty * 32 * tx * 32 * 4
-                  + fields.numel() * 4)
+                  + (n_ct + n_res) * px_bytes + fields.numel() * 4)
+        alone = fullest_alone(torch, starts)
+        # the whole backward: its state pass and its main pass
         entry(f"composite_bwd_{variant}",
               "mesh2splat_torch/kernels/csrc/composite_bwd.cu",
               "mesh2splat_tpu/render/composite.py:501",
               event_ms(lambda: kernels.composite_backward(
                   fields, starts, ct, res, **kw4), 10),
-              k4_plain_ms[variant], nbytes, ops,
+              k4_plain_ms[variant], nbytes,
+              pairs * 100 + covered[variant] * (22 + per_px),
               errs[f"composite_bwd_{variant}"],
               path="fit_splats" if variant == "albedo" else "grad_full",
-              rel_err=errs[f"composite_bwd_{variant}_rel"])
-    for name, n_fields, line in (("min_depth", 6, 784),
-                                 ("overdraw", 5, 833)):
+              rel_err=errs[f"composite_bwd_{variant}_rel"],
+              walk_ops=pairs * (1024 * 22 + 100) + covered[variant] * per_px,
+              fullest_ms=event_ms(lambda: kernels.composite_backward(
+                  fields, alone, ct, res, **kw4), 10))
+        # the state pass alone: every segment but a tile's last
+        seg_first = kernels.segment_table(starts).long()
+        nseg = seg_first[1:] - seg_first[:-1]
+        hi = (nseg - 1).clamp(min=0) * kernels.SEG_CHUNKS
+        cov, n_state = covered_pairs(torch, fields, starts, kw4, variant,
+                                     (torch.zeros_like(hi), hi))
+        n_states = int((nseg - 1).clamp(min=0).sum())
+        entry(f"composite_bwd_state_{variant}",
+              "mesh2splat_torch/kernels/csrc/composite_bwd.cu",
+              "mesh2splat_tpu/render/composite.py:501",
+              event_ms(lambda: kernels.composite_bwd_states(
+                  fields, starts, ct, **kw4), 10),
+              k4_plain_ms[f"state_{variant}"],
+              n_fields * n_state * 4 + (ty * tx + 1) * 4 + n_ct * px_bytes
+              + n_states * (2 if kw4["albedo_only"] else 4) * 1024 * 4,
+              n_state * 60 + cov * (22 + per_px_state),
+              errs[f"composite_bwd_state_{variant}"],
+              path="fit_splats" if variant == "albedo" else "grad_full",
+              rel_err=errs[f"composite_bwd_state_{variant}_rel"],
+              walk_ops=n_state * (1024 * 22 + 60))
+        log(f"K4 {variant}: state pass over {n_state} pairs in {n_states} "
+            f"segments ({kernels.SEG_CHUNKS} chunks each), {cov} covered "
+            f"(pair, pixel)")
+    for name, variant, n_fields, line in (("min_depth", "depth", 6, 784),
+                                          ("overdraw", "overdraw", 5, 833)):
         fields, starts, kw5 = k56_inputs[name]
         pairs = int(starts[-1])
         ty, tx = kw5["ty"], kw5["tx"]
-        # every (pair, pixel) of every chunk (no early exit): the falloff
-        # polynomial, the quad's u and v and the coverage test (22 flops);
-        # per pair the conic's axes and the plane coefficients (~60)
+        cov, _ = covered_pairs(torch, fields, starts, kw5, variant)
         entry(name, "mesh2splat_torch/kernels/csrc/single_channel.cu",
               f"mesh2splat_tpu/render/composite.py:{line}",
               event_ms(lambda: getattr(kernels, name)(fields, starts, **kw5),
@@ -979,14 +1140,20 @@ def main():
               k56_plain_ms[name],
               n_fields * pairs * 4 + (ty * tx + 1) * 4
               + ty * 32 * tx * 32 * 4,
-              pairs * (1024 * 22 + 60), errs[name],
-              path="cubemap" if name == "min_depth" else "overdraw")
+              pairs * 60 + cov * (22 + 3), errs[name],
+              path="cubemap" if name == "min_depth" else "overdraw",
+              walk_ops=pairs * (1024 * 22 + 60))
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms,"
-            f" bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"{r['launches']} launches on the {r['path']} path, "
-            f"{r['launches_per_training_step']:g} per fit_splats step, "
-            f"{r['launches_per_texture_step']:g} per fit_textures step)")
+            f" bound {r['bound_ms']:.4f} ms by {r['bound_by']}, naive walk "
+            f"{r['walk_ms']:.4f} ms, {r['launches']} launches on the "
+            f"{r['path']} path, {r['launches_per_training_step']:g} per "
+            f"fit_splats step, {r['launches_per_texture_step']:g} per "
+            f"fit_textures step; {r['registers']} registers, "
+            f"{r['spill_bytes']} spill bytes, {r['static_smem_bytes']} static "
+            f"shared bytes, {r['resident_warps_per_sm']} resident warps/SM"
+            + (f"; fullest tile alone {r['fullest_tile_ms']:.4f} ms"
+               if r["fullest_tile_ms"] is not None else "") + ")")
     for line in train["times"] + renders["times"]:
         log(f"{line} ({smi})")
 

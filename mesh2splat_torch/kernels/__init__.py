@@ -10,8 +10,10 @@ tensors take the plain PyTorch versions beside them.
   fragment_apply    K2  ops/fragment.py::fragment_apply
   composite_full    K3  render/composite.py::composite_tiles
   composite_albedo  K3  the same, albedo_only=True
-  composite_bwd_full    K4  the backward of composite_tiles
+  composite_bwd_full    K4  the backward of composite_tiles (main pass)
   composite_bwd_albedo  K4  the same, albedo_only=True
+  composite_bwd_state_full    K4  its state pass (composite_bwd_states)
+  composite_bwd_state_albedo  K4  the same, albedo_only=True
   min_depth         K5  render/composite.py::min_depth_tiles
   overdraw          K6  render/composite.py::overdraw_tiles
 """
@@ -26,10 +28,13 @@ from . import build as _build
 
 launches = {"texel_rows": 0, "fragment_apply": 0, "composite_full": 0,
             "composite_albedo": 0, "composite_bwd_full": 0,
-            "composite_bwd_albedo": 0, "min_depth": 0, "overdraw": 0}
+            "composite_bwd_albedo": 0, "composite_bwd_state_full": 0,
+            "composite_bwd_state_albedo": 0, "min_depth": 0, "overdraw": 0}
 
 REC_W = 64
 MAX_LEVELS = 8
+CHUNK = 128       # pairs per chunk of a tile's walk (render/binning.py)
+SEG_CHUNKS = 8    # K4: chunks per segment, one block each
 
 
 def reset_launches():
@@ -67,10 +72,21 @@ _SIGNATURES = {
     "composite": ("m2s_composite_forward",
                   [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P]),
     "composite_bwd": ("m2s_composite_backward",
-                      [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+                      [_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                       _P, _P]),
+    "composite_bwd_states": ("m2s_composite_bwd_states",
+                             [_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                              _P]),
     "single_channel": ("m2s_single_channel",
                        [_P, _L, _P, _I, _I, _I, _I, _P, _P]),
+    "composite_occupancy": ("m2s_composite_forward_occupancy", [_I, _P]),
+    "composite_bwd_occupancy": ("m2s_composite_backward_occupancy",
+                                [_I, _I, _P]),
 }
+# the source that holds each symbol of _SIGNATURES
+_SOURCE = {"composite_occupancy": "composite",
+           "composite_bwd_states": "composite_bwd",
+           "composite_bwd_occupancy": "composite_bwd"}
 _fns: dict = {}
 
 
@@ -78,7 +94,7 @@ def _fn(source: str):
     fn = _fns.get(source)
     if fn is None:
         sym, argtypes = _SIGNATURES[source]
-        fn = getattr(_build.load(source), sym)
+        fn = getattr(_build.load(_SOURCE.get(source, source)), sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[source] = fn
@@ -98,6 +114,12 @@ def _check(t, name, dtype, ndim, device=None, rows=None):
                          f"with {ndim} dims")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_aligned(t, name):
+    # K3 and K4 stage a chunk's field rows in 16-byte cp.async pieces
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def _stream(device):
@@ -160,6 +182,7 @@ def composite_forward(fields, tile_starts, *, height, ty, tx, albedo_only,
     _check(fields, "fields", torch.float32, 2, rows=16 if albedo_only else 24)
     _check(tile_starts, "tile_starts", torch.int32, 1, fields.device,
            rows=ty * tx + 1)
+    _check_aligned(fields, "fields")
     if walked is not None:
         _check(walked, "walked", torch.int32, 1, fields.device, rows=ty * tx)
     out = torch.empty((16, ty * 32, tx * 32), dtype=torch.float32,
@@ -174,31 +197,106 @@ def composite_forward(fields, tile_starts, *, height, ty, tx, albedo_only,
     return out
 
 
+def segment_table(tile_starts, seg_chunks=SEG_CHUNKS):
+    """K4's segments: a tile of nc chunks is walked as ceil(nc / seg_chunks)
+    segments of seg_chunks chunks (the last one shorter), one block each.
+    Returns seg_first, (tiles + 1,) int32 on tile_starts' device: the
+    number of segments before each tile. Works on any device."""
+    ts = tile_starts.long()
+    starts, ends = ts[:-1], ts[1:]
+    aligned = torch.div(starts, CHUNK, rounding_mode="floor") * CHUNK
+    nc = torch.where(ends > starts, torch.div(
+        ends - aligned + CHUNK - 1, CHUNK, rounding_mode="floor"), 0)
+    nseg = torch.div(nc + seg_chunks - 1, seg_chunks, rounding_mode="floor")
+    return torch.cat([nseg.new_zeros(1), torch.cumsum(nseg, 0)]).to(
+        torch.int32)
+
+
+def segment_blocks(n_tiles, capacity, seg_chunks=SEG_CHUNKS):
+    """A bound on the segment count from shapes alone, so that the launch
+    needs no read of seg_first: a tile of n pairs has at most n / 128 + 2
+    chunks, and the tiles hold at most ``capacity`` pairs. Blocks past the
+    last segment return at once."""
+    return n_tiles + (capacity // CHUNK + 2 * n_tiles) // seg_chunks + 1
+
+
+def _check_backward(fields, tile_starts, ct, ty, tx, albedo_only):
+    _check(fields, "fields", torch.float32, 2, rows=16 if albedo_only else 24)
+    _check_aligned(fields, "fields")
+    dev = fields.device
+    _check(tile_starts, "tile_starts", torch.int32, 1, dev, rows=ty * tx + 1)
+    _check(ct, "ct", torch.float32, 3, dev, rows=16)
+    if tuple(ct.shape[1:]) != (ty * 32, tx * 32):
+        raise ValueError(f"ct: shape {tuple(ct.shape)}, expected "
+                         f"(*, {ty * 32}, {tx * 32})")
+
+
+def composite_bwd_states(fields, tile_starts, ct, *, height, ty, tx,
+                         albedo_only):
+    """K4's state pass: (states, seg_first). states is (blocks, 2 or 4,
+    1024) f32: for block b, the segment seg_first[t] + k = b of tile t (of
+    SEG_CHUNKS chunks), per tile-local pixel its T_a, Bpref_a (and T_g,
+    Bpref_g) after a walk of the segment alone from T = 1, Bpref = 0. Rows
+    of a tile's last segment, and past the last segment, are not
+    written."""
+    _check_backward(fields, tile_starts, ct, ty, tx, albedo_only)
+    dev = fields.device
+    seg_first = segment_table(tile_starts)
+    blocks = segment_blocks(ty * tx, fields.shape[1])
+    states = torch.empty((blocks, 2 if albedo_only else 4, 1024),
+                         dtype=torch.float32, device=dev)
+    err = _fn("composite_bwd_states")(
+        fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(),
+        seg_first.data_ptr(), blocks, SEG_CHUNKS, ty, tx, height,
+        int(albedo_only), ct.data_ptr(), states.data_ptr(), _stream(dev))
+    _raise_on(err, "composite_bwd_states")
+    launches["composite_bwd_state_albedo" if albedo_only else
+             "composite_bwd_state_full"] += 1
+    return states, seg_first
+
+
 def composite_backward(fields, tile_starts, ct, res, *, height, ty, tx,
                        albedo_only):
     """K4: dfields (F_pad, P) f32, the VJP of composite_forward. ct is the
     (16, ty*32, tx*32) cotangent of its output, res the (2, ty*32, tx*32)
     per-pixel totals res_a, res_g (render/composite.py backward_totals).
-    Rows outside every tile's range come back zero."""
-    _check(fields, "fields", torch.float32, 2, rows=16 if albedo_only else 24)
+    Rows outside every tile's range come back zero. Launches the state pass
+    (composite_bwd_states) and then the main pass over the segments of
+    SEG_CHUNKS chunks."""
+    _check_backward(fields, tile_starts, ct, ty, tx, albedo_only)
     dev = fields.device
-    _check(tile_starts, "tile_starts", torch.int32, 1, dev, rows=ty * tx + 1)
-    img = (ty * 32, tx * 32)
-    _check(ct, "ct", torch.float32, 3, dev, rows=16)
     _check(res, "res", torch.float32, 3, dev, rows=2)
-    for t, name in ((ct, "ct"), (res, "res")):
-        if tuple(t.shape[1:]) != img:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"(*, {img[0]}, {img[1]})")
+    if tuple(res.shape[1:]) != (ty * 32, tx * 32):
+        raise ValueError(f"res: shape {tuple(res.shape)}, expected "
+                         f"(*, {ty * 32}, {tx * 32})")
+    states, seg_first = composite_bwd_states(
+        fields, tile_starts, ct, height=height, ty=ty, tx=tx,
+        albedo_only=albedo_only)
     dfields = torch.zeros_like(fields)
     err = _fn("composite_bwd")(
-        fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(), ty, tx,
-        height, int(albedo_only), ct.data_ptr(), res.data_ptr(),
+        fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(),
+        seg_first.data_ptr(), states.shape[0], SEG_CHUNKS, ty, tx, height,
+        int(albedo_only), ct.data_ptr(), res.data_ptr(), states.data_ptr(),
         dfields.data_ptr(), _stream(dev))
     _raise_on(err, "composite_backward")
     launches["composite_bwd_albedo" if albedo_only else
              "composite_bwd_full"] += 1
     return dfields
+
+
+def resident_blocks(name: str) -> int:
+    """Blocks of 256 threads of kernel ``name`` (composite_full / _albedo,
+    composite_bwd_full / _albedo, composite_bwd_state_full / _albedo)
+    resident on one SM, from the CUDA occupancy calculator."""
+    blocks = ctypes.c_int(0)
+    albedo = int(name.endswith("albedo"))
+    if name.startswith("composite_bwd"):
+        err = _fn("composite_bwd_occupancy")(
+            albedo, int("_state_" in name), ctypes.byref(blocks))
+    else:
+        err = _fn("composite_occupancy")(albedo, ctypes.byref(blocks))
+    _raise_on(err, f"occupancy of {name}")
+    return blocks.value
 
 
 def _single_channel(fields, tile_starts, height, ty, tx, min_depth):

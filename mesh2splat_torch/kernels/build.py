@@ -5,7 +5,8 @@ shared library with a plain C interface (all processes started together),
 into ``build/kernels/`` of the checkout, and loaded with ctypes. Nothing is
 compiled when the package is imported: the first call that needs a kernel
 builds it. A library whose name carries the hash of its sources and flags is
-reused, so a rebuild happens only after an edit.
+reused, so a rebuild happens only after an edit; its ptxas lines are kept
+beside it for the build report.
 """
 
 from __future__ import annotations
@@ -66,7 +67,10 @@ def build(names=SOURCES) -> dict:
     todo = [n for n in names if not _lib_path(n).exists()]
     for n in names:
         if n not in todo:
-            report.setdefault(n, {"seconds": 0.0, "ptxas": [], "cached": True})
+            log = _lib_path(n).with_suffix(".ptxas")
+            lines = log.read_text().splitlines() if log.exists() else []
+            report.setdefault(n, {"seconds": 0.0, "ptxas": lines,
+                                  "cached": True})
     if not todo:
         return report
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -89,6 +93,7 @@ def build(names=SOURCES) -> dict:
         if proc.returncode != 0:
             failed.append(f"--- {n}.cu (nvcc exit {proc.returncode})\n{out}")
         else:
+            _lib_path(n).with_suffix(".ptxas").write_text("\n".join(lines))
             tmp.replace(_lib_path(n))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

@@ -29,6 +29,15 @@ none) or the count of covering pairs. A pair covers a pixel where its
 falloff g is above 0 (inside the quad and not underflowed), the coverage of
 the composite. Both are order-free.
 
+The kernels K3 and K4 skip, for each warp's 8x4-pixel cull block, the pairs
+whose quad provably misses every pixel of the block (``cull_plain`` is the
+rule's plain mirror, which the tests hold to the coverage of
+``_chunk_planes``); a skipped pair adds nothing, so the plain versions need
+no cull. K4 walks a tile's chunks in segments over several blocks, each
+segment starting from the states of the ones before it
+(``segment_states_plain``; ``composite_backward_plain(seg_chunks=)`` walks
+the same way).
+
 A CUDA tensor launches the hand-written kernels (``kernels.composite_forward``,
 ``kernels.composite_backward``, ``kernels.min_depth``, ``kernels.overdraw``);
 a CPU tensor takes ``composite_plain``, ``composite_backward_plain``,
@@ -79,11 +88,11 @@ def _pixel_coords(device):
     return x, y, x * x, x * y, y * y
 
 
-def _chunk_planes(col, tjf, py0, pix, live):
-    """Coverage-masked falloff g (nb, CHUNK, NPX) of one chunk per tile,
-    and the tile-local means mxp, myp (nb, CHUNK, 1). col(name) ->
-    (nb, CHUNK, 1); tjf, py0: (nb, 1, 1); live (nb, CHUNK, 1)."""
-    x, y, xx, xy, yy = pix
+def _planes(col, tjf, py0):
+    """The plane coefficients of one chunk per tile, in the tile-local pixel
+    basis: the falloff power's c_pw (6 terms of [1, x, y, x^2, x*y, y^2]),
+    the quad's c_u and c_v (3 terms of [1, x, y]), and the tile-local means
+    mxp, myp. col(name) -> (nb, CHUNK, 1); tjf, py0: (nb, 1, 1)."""
     ca, cb, cc = col("conic_a"), col("conic_b"), col("conic_c")
     mxp = col("mean_x") - tjf
     myp = col("mean_y") - py0
@@ -101,14 +110,64 @@ def _chunk_planes(col, tjf, py0, pix, live):
     )
     c_u = (rdet * (mnx * myp - mny * mxp), rdet * mny, rdet * mnx)
     c_v = (rdet * (mxp * mjy - mjx * myp), -rdet * mjy, -rdet * mjx)
-    pw = (c_pw[0] + c_pw[1] * x + c_pw[2] * y + c_pw[3] * xx
-          + c_pw[4] * xy + c_pw[5] * yy)
+    return c_pw, c_u, c_v, mxp, myp
+
+
+def _quad_inside(c_u, c_v, x, y):
+    """Whether pixel centre (x, y) lies in the pair's quad: |u|, |v| <= 1."""
     u = c_u[0] + c_u[1] * x + c_u[2] * y
     v = c_v[0] + c_v[1] * x + c_v[2] * y
-    inside = (torch.maximum(u.abs(), v.abs()) <= 1.0) & live
+    return torch.maximum(u.abs(), v.abs()) <= 1.0
+
+
+def _chunk_planes(col, tjf, py0, pix, live):
+    """Coverage-masked falloff g (nb, CHUNK, NPX) of one chunk per tile,
+    and the tile-local means mxp, myp (nb, CHUNK, 1). col(name) ->
+    (nb, CHUNK, 1); tjf, py0: (nb, 1, 1); live (nb, CHUNK, 1)."""
+    x, y, xx, xy, yy = pix
+    c_pw, c_u, c_v, mxp, myp = _planes(col, tjf, py0)
+    pw = (c_pw[0] + c_pw[1] * x + c_pw[2] * y + c_pw[3] * xx
+          + c_pw[4] * xy + c_pw[5] * yy)
+    inside = _quad_inside(c_u, c_v, x, y) & live
     g = torch.where(inside, torch.exp(torch.minimum(pw, torch.zeros_like(pw))),
                     0.0)
     return g, mxp, myp
+
+
+# K3 and K4 cull a chunk's pairs against blocks of 8x4 pixels, 32 to a
+# tile: block b holds the pixels [8 (b % 4), +8) x [4 (b // 4), +4), and the
+# warp that walks it only the pairs the cull keeps
+# (kernels/csrc/composite_common.cuh).
+BLOCK_W, BLOCK_H = 8, 4
+NUM_BLOCKS = (TILE_W // BLOCK_W) * (TILE_H // BLOCK_H)
+CULL_EPS = 2.0 ** -20   # the cull's relative margin (its derivation: the .cuh)
+
+
+def _plane_reaches(c0, c1, c2, xc, yc):
+    """Whether c0 + c1 x + c2 y may lie in [-1, 1] at a pixel centre of the
+    block centred at (xc, yc): the kernels' plane_reaches(), the same f32
+    operations in the same order. NaN keeps the pair."""
+    mid = c0 + c1 * xc + c2 * yc
+    half = c1.abs() * (BLOCK_W / 2 - 0.5) + c2.abs() * (BLOCK_H / 2 - 0.5)
+    margin = (c0.abs() + 32.0 * (c1.abs() + c2.abs()) + 1.0) * CULL_EPS
+    return ~(mid.abs() - half > 1.0 + margin)
+
+
+def cull_plain(c_u, c_v):
+    """Plain version of the kernels' cull: a (..., NUM_BLOCKS) bool, True
+    where the pair (its quad's u and v planes c_u, c_v: triples of (...)
+    f32 tensors from ``_planes``) covers no pixel of cull block b. It is
+    conservative: a dropped pair covers no pixel of the block. Nothing on
+    the main path calls it; the tests hold the rule to the coverage of
+    ``_chunk_planes``."""
+    per_row = TILE_W // BLOCK_W
+    out = []
+    for b in range(NUM_BLOCKS):
+        xc = float((b % per_row) * BLOCK_W + BLOCK_W // 2)
+        yc = float((b // per_row) * BLOCK_H + BLOCK_H // 2)
+        out.append(~(_plane_reaches(*c_u, xc, yc)
+                     & _plane_reaches(*c_v, xc, yc)))
+    return torch.stack(out, dim=-1)
 
 
 def _incl_cumsum(x):
@@ -153,10 +212,13 @@ def _tile_origin(tiles, tx, height):
 
 
 def composite_plain(fields, tile_starts, height, ty, tx, albedo_only,
-                    tile_batch=256):
+                    tile_batch=256, return_walked=False):
     """Plain version of K3: loops over chunk index c for a batch of tiles at
     once, with the kernel's chunk-boundary early exit. Returns
-    (16, ty*32, tx*32)."""
+    (16, ty*32, tx*32); with ``return_walked`` also the (ty*tx,) int32
+    count of the pairs each tile walked before its early exit, counted as
+    the kernel counts them: the rows of its range up to the end of its last
+    walked chunk."""
     idx = B.field_index("albedo" if albedo_only else "full")
     dev = fields.device
     p_cap = fields.shape[1]
@@ -165,6 +227,7 @@ def composite_plain(fields, tile_starts, height, ty, tx, albedo_only,
     pix = _pixel_coords(dev)
     lane = torch.arange(CHUNK, device=dev)
     out = torch.zeros((n_tiles, NUM_CH, NPX), dtype=torch.float32, device=dev)
+    chunks_walked = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
 
     for b0 in range(0, n_tiles, tile_batch):
         tiles = torch.arange(b0, min(b0 + tile_batch, n_tiles), device=dev)
@@ -178,6 +241,7 @@ def composite_plain(fields, tile_starts, height, ty, tx, albedo_only,
             active = (c < nc) & (acc[:, CH_TA].amax(dim=1) > MIN_T)
             if not bool(active.any()):
                 break
+            chunks_walked[b0:b0 + nb] += active
             rows = al[:, None] + c * CHUNK + lane  # (nb, CHUNK)
             live = (rows >= s[:, None]) & (rows < e[:, None]) & active[:, None]
             st = fields[:, rows.clamp(max=p_cap - 1)]  # (F, nb, CHUNK)
@@ -216,8 +280,13 @@ def composite_plain(fields, tile_starts, height, ty, tx, albedo_only,
         if albedo_only:
             acc[:, CH_TG] = 1.0
         out[b0:b0 + nb] = acc
-    return (out.reshape(ty, tx, NUM_CH, TILE_H, TILE_W)
-            .permute(2, 0, 3, 1, 4).reshape(NUM_CH, ty * TILE_H, tx * TILE_W))
+    img = (out.reshape(ty, tx, NUM_CH, TILE_H, TILE_W)
+           .permute(2, 0, 3, 1, 4).reshape(NUM_CH, ty * TILE_H, tx * TILE_W))
+    if not return_walked:
+        return img
+    hi = torch.minimum(aligned + chunks_walked * CHUNK, ends)
+    walked = torch.where(num_chunks > 0, hi - starts, 0).to(torch.int32)
+    return img, walked
 
 
 def _to_tiles(img, ty, tx):
@@ -237,12 +306,50 @@ def backward_totals(out, ct):
 
 @torch.no_grad()
 def composite_backward_plain(fields, tile_starts, out, ct, height, ty, tx,
-                             albedo_only, tile_batch=64):
+                             albedo_only, tile_batch=64, seg_chunks=None):
     """Plain version of K4: dfields (F_pad, P) from the forward's fields,
     tile_starts and output ``out`` (16, ty*32, tx*32) and its cotangent
     ``ct`` (same shape). Walks every chunk of each tile (no early exit);
     rows outside every tile's [start, end), and so every row >= num_pairs,
-    get zero. It is itself the gradient: it records no autograd graph."""
+    get zero. It is itself the gradient: it records no autograd graph.
+
+    With ``seg_chunks``, the kernel's segmented walk: each segment of
+    ``seg_chunks`` chunks (``kernels.segment_table``) starts from the
+    states of the segments before it (``segment_states_plain``), folded in
+    order, instead of the running T and Bpref."""
+    states = None
+    if seg_chunks:
+        states, _ = segment_states_plain(fields, tile_starts, ct, height, ty,
+                                         tx, albedo_only, seg_chunks,
+                                         tile_batch)
+    return _backward_walk(fields, tile_starts, ct, backward_totals(out, ct),
+                          height, ty, tx, albedo_only, tile_batch,
+                          seg_chunks, states)[0]
+
+
+@torch.no_grad()
+def segment_states_plain(fields, tile_starts, ct, height, ty, tx,
+                         albedo_only, seg_chunks, tile_batch=64):
+    """Plain version of K4's state pass: (states, last). states is
+    (n_segments, 2 or 4, NPX): per segment of every tile, in the order of
+    ``kernels.segment_table``, per pixel the T_a, Bpref_a (and T_g,
+    Bpref_g) of a walk of that segment's chunks alone from T = 1,
+    Bpref = 0; ``last`` marks each tile's last segment, whose state no
+    segment needs (the kernel does not compute it)."""
+    zero = torch.zeros((2,) + tuple(ct.shape[1:]), dtype=torch.float32,
+                       device=ct.device)
+    return _backward_walk(fields, tile_starts, ct, zero, height, ty, tx,
+                          albedo_only, tile_batch, seg_chunks, None,
+                          state_pass=True)[1]
+
+
+def _backward_walk(fields, tile_starts, ct, res, height, ty, tx, albedo_only,
+                   tile_batch, seg_chunks, states, state_pass=False):
+    """The walk of K4 over batches of tiles: (dfields, (states, last)).
+    Without ``seg_chunks`` one walk per tile carries T and Bpref through
+    every chunk. With it, at the start of each segment but the first, the
+    state pass resets T, Bpref to 1, 0 (and records every segment's end
+    state), and the main pass takes the fold of ``states``."""
     full = not albedo_only
     idx = B.field_index("albedo" if albedo_only else "full")
     dev = fields.device
@@ -252,9 +359,18 @@ def composite_backward_plain(fields, tile_starts, out, ct, height, ty, tx,
     x, y, xx, xy, yy = _pixel_coords(dev)
     feats = torch.stack([torch.ones_like(x), x, y, xx, xy, yy])  # (6, NPX)
     ct_t = _to_tiles(ct, ty, tx)
-    res_t = _to_tiles(backward_totals(out, ct), ty, tx)
+    res_t = _to_tiles(res, ty, tx)
     lane = torch.arange(CHUNK, device=dev)
     dfields = torch.zeros_like(fields)
+    seg_out = last = seg_first = None
+    if seg_chunks:
+        seg_first = kernels.segment_table(tile_starts, seg_chunks).long()
+        n_seg = int(seg_first[-1])
+        last = torch.zeros(n_seg, dtype=torch.bool, device=dev)
+        last[seg_first[1:][seg_first[1:] > seg_first[:-1]] - 1] = True
+        if state_pass:
+            seg_out = torch.full((n_seg, 4 if full else 2, NPX), float("nan"),
+                                 dtype=torch.float32, device=dev)
 
     for b0 in range(0, n_tiles, tile_batch):
         tiles = torch.arange(b0, min(b0 + tile_batch, n_tiles), device=dev)
@@ -269,6 +385,29 @@ def composite_backward_plain(fields, tile_starts, out, ct, height, ty, tx,
         bp_g = torch.zeros_like(t_a)
         s, e, al, nc = starts[tiles], ends[tiles], aligned[tiles], num_chunks[tiles]
         for c in range(int(nc.max()) if nb else 0):
+            if seg_chunks and c % seg_chunks == 0 and c > 0:
+                # segment k starts here in the tiles that still have chunks
+                k = c // seg_chunks
+                has = (c < nc)[:, None, None]
+                one, zero = torch.ones_like(t_a), torch.zeros_like(t_a)
+                if state_pass:
+                    seg = seg_first[tiles] + k - 1   # the one that just ended
+                    ended = torch.cat([t_a, bp_a]
+                                      + ([t_g, bp_g] if full else []), dim=1)
+                    seg_out[seg[c < nc]] = ended[c < nc]
+                    n_a, n_g, nb_a, nb_g = one, one, zero, zero
+                else:
+                    n_a, n_g, nb_a, nb_g = one, one, zero, zero
+                    for j in range(k):
+                        sv = states[(seg_first[tiles] + j).clamp(
+                            max=states.shape[0] - 1)]
+                        nb_a = nb_a + n_a * sv[:, 1:2]
+                        n_a = n_a * sv[:, 0:1]
+                        if full:
+                            nb_g = nb_g + n_g * sv[:, 3:4]
+                            n_g = n_g * sv[:, 2:3]
+                t_a, bp_a = torch.where(has, n_a, t_a), torch.where(has, nb_a, bp_a)
+                t_g, bp_g = torch.where(has, n_g, t_g), torch.where(has, nb_g, bp_g)
             rows = al[:, None] + c * CHUNK + lane  # (nb, CHUNK)
             live = (rows >= s[:, None]) & (rows < e[:, None]) & (c < nc)[:, None]
             st = fields[:, rows.clamp(max=p_cap - 1)]  # (F, nb, CHUNK)
@@ -337,10 +476,16 @@ def composite_backward_plain(fields, tile_starts, out, ct, height, ty, tx,
                 bp_g = bpref_g[:, -1:]
             t_a = t_a * cum[:, -1:] * om[:, -1:]
             bp_a = bpref_a[:, -1:]
-            dst = rows[live]
-            for name, gval in grads.items():
-                dfields[idx[name], dst] = gval[..., 0][live]
-    return dfields
+            if not state_pass:
+                dst = rows[live]
+                for name, gval in grads.items():
+                    dfields[idx[name], dst] = gval[..., 0][live]
+        if state_pass:   # every tile's last segment ends with its walk
+            busy = nc > 0
+            ended = torch.cat([t_a, bp_a] + ([t_g, bp_g] if full else []),
+                              dim=1)
+            seg_out[(seg_first[tiles + 1] - 1)[busy]] = ended[busy]
+    return dfields, (seg_out, last)
 
 
 class _Composite(torch.autograd.Function):

@@ -98,11 +98,130 @@ def _binned(device, albedo_only):
 def test_kernel_k3_matches_plain(cuda, albedo_only):
     b = _binned(cuda, albedo_only)
     ty, tx = TB.tiles_for(200, 130)
+    walked = torch.empty(ty * tx, dtype=torch.int32, device=cuda)
     out = kernels.composite_forward(b.fields, b.tile_starts, height=130,
-                                    ty=ty, tx=tx, albedo_only=albedo_only)
-    ref = TCOMP.composite_plain(b.fields, b.tile_starts, 130, ty, tx,
-                                 albedo_only)
+                                    ty=ty, tx=tx, albedo_only=albedo_only,
+                                    walked=walked)
+    ref, ref_walked = TCOMP.composite_plain(b.fields, b.tile_starts, 130, ty,
+                                            tx, albedo_only,
+                                            return_walked=True)
     assert float((out - ref).abs().max()) <= 1e-3
+    assert torch.equal(walked, ref_walked)
+
+
+W_ADV, H_ADV = 200, 70   # 7 x 3 tiles; the last row of tiles is padded
+LONG_TILE = 8            # tile (1, 1): 45 chunks with an opaque stack
+
+
+def _adversarial_pairs(device, albedo_only, seed=0):
+    """Binned pairs built by hand for a 200x70 image (its height no
+    multiple of 32): every tile holds tiny splats (the mostly culled case),
+    a degenerate pair (zero conic: it covers every pixel) and axis-aligned
+    quads whose edge sits on a pixel centre at a cull-block boundary; tile
+    LONG_TILE holds 45 chunks, with tiny splats, then an opaque stack that
+    covers the whole tile from pair 2100 on, then more pairs that the early
+    exit skips."""
+    rng = np.random.default_rng(seed)
+    ty, tx = TB.tiles_for(W_ADV, H_ADV)
+    nf = 9 if albedo_only else 18
+    cols = []
+    counts = []
+    for t in range(ty * tx):
+        ti, tj = divmod(t, tx)
+        n = 45 * 128 - 37 if t == LONG_TILE else int(rng.integers(60, 700))
+        cx = rng.uniform(-3, 35, n)
+        cy = rng.uniform(-3, 35, n)
+        sig = rng.uniform(0.3, 2.0, (2, n))
+        theta = rng.uniform(0, np.pi, n)
+        alpha = rng.uniform(0.05, 0.6, n)
+        k = min(n // 3, 40)   # quads with an edge on a block boundary
+        horiz = rng.random(k) < 0.5
+        edge = np.where(horiz, 8 * rng.integers(1, 4, k),
+                        4 * rng.integers(1, 8, k)) + rng.choice([-0.5, 0.5], k)
+        ctr = edge - rng.uniform(1, 6, k) * rng.choice([-1, 1], k)
+        cx[:k] = np.where(horiz, ctr, cx[:k])
+        cy[:k] = np.where(horiz, cy[:k], ctr)
+        sig[0, :k] = np.where(horiz, np.abs(edge - ctr) / 3, 0.8)
+        sig[1, :k] = np.where(horiz, 0.8, np.abs(edge - ctr) / 3)
+        theta[:k] = 0.0
+        if t == LONG_TILE:   # the opaque stack
+            s = slice(2100, 2100 + 300)
+            cx[s], cy[s] = rng.uniform(10, 22, (2, 300))
+            sig[:, s] = rng.uniform(8, 12, (2, 300))
+            alpha[s] = 1.0
+        c, sn = np.cos(theta), np.sin(theta)
+        ia, ib = 1 / sig[0] ** 2, 1 / sig[1] ** 2
+        ca, cb, cc = c * c * ia + sn * sn * ib, c * sn * (ia - ib), \
+            sn * sn * ia + c * c * ib
+        ca[k], cb[k], cc[k] = 0.0, 0.0, 0.0   # the degenerate pair
+        f = np.zeros((nf, n), np.float32)
+        f[0] = tj * 32 + cx
+        f[1] = (H_ADV - ti * 32) - cy
+        f[2], f[3], f[4] = ca, cb, cc
+        f[5:8] = rng.uniform(0.05, 1, (3, n))
+        f[8] = alpha
+        if not albedo_only:
+            f[9:] = rng.uniform(-1, 1, (9, n))
+        cols.append(f)
+        counts.append(n)
+    fields = np.concatenate(cols, 1)
+    p = -(-fields.shape[1] // 128) * 128 + 128
+    full = np.zeros((16 if albedo_only else 24, p), np.float32)
+    full[:nf, :fields.shape[1]] = fields
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return (torch.from_numpy(full).to(device),
+            torch.from_numpy(starts).to(device), ty, tx)
+
+
+@pytest.mark.parametrize("albedo_only", [False, True])
+def test_kernel_k3_adversarial(cuda, albedo_only):
+    """K3 on hand-built pairs (tiny splats, a degenerate pair, quad edges on
+    cull-block boundaries, a 45-chunk tile whose opaque stack ends it in
+    the middle of its list, an image height no multiple of 32) against its
+    plain version: within 1e-3, and the same pairs walked, tile for tile."""
+    fields, starts, ty, tx = _adversarial_pairs(cuda, albedo_only)
+    walked = torch.empty(ty * tx, dtype=torch.int32, device=cuda)
+    out = kernels.composite_forward(fields, starts, height=H_ADV, ty=ty,
+                                    tx=tx, albedo_only=albedo_only,
+                                    walked=walked)
+    ref, ref_walked = TCOMP.composite_plain(fields, starts, H_ADV, ty, tx,
+                                            albedo_only, return_walked=True)
+    assert float((out - ref).abs().max()) <= 1e-3
+    assert torch.equal(walked, ref_walked)
+    n = int(starts[LONG_TILE + 1] - starts[LONG_TILE])
+    assert 2100 < int(walked[LONG_TILE]) < n
+
+
+@pytest.mark.parametrize("albedo_only", [False, True])
+def test_kernel_k4_adversarial(cuda, albedo_only):
+    """K4 on the same pairs against its plain version for a random
+    cotangent: each field row within 1e-3 of its largest magnitude, padding
+    rows and rows past the last pair zero, the same bits on a second run;
+    segment boundaries fall inside the 45-chunk tile; the state pass's rows
+    against its plain version."""
+    fields, starts, ty, tx = _adversarial_pairs(cuda, albedo_only)
+    kw = dict(height=H_ADV, ty=ty, tx=tx, albedo_only=albedo_only)
+    out = kernels.composite_forward(fields, starts, **kw)
+    ct = torch.from_numpy(np.random.default_rng(1).normal(
+        size=tuple(out.shape)).astype(np.float32)).to(cuda)
+    res = TCOMP.backward_totals(out, ct).contiguous()
+    ref = TCOMP.composite_backward_plain(fields, starts, out, ct, H_ADV, ty,
+                                         tx, albedo_only)
+    nf = 9 if albedo_only else 18
+    scale = ref[:nf].abs().amax(1)
+    seg = kernels.SEG_CHUNKS
+    assert int(TCOMP._tile_ranges(starts)[3][LONG_TILE]) > 2 * seg
+    got = kernels.composite_backward(fields, starts, ct, res, **kw)
+    assert bool(((got - ref)[:nf].abs().amax(1) <= 1e-3 * scale).all())
+    assert not got[nf:].any() and not got[:, int(starts[-1]):].any()
+    again = kernels.composite_backward(fields, starts, ct, res, **kw)
+    assert torch.equal(got, again)
+    states, _ = kernels.composite_bwd_states(fields, starts, ct, **kw)
+    want, last = TCOMP.segment_states_plain(fields, starts, ct, H_ADV, ty, tx,
+                                            albedo_only, seg)
+    keep = ~last
+    torch.testing.assert_close(states[:want.shape[0]][keep], want[keep],
+                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("albedo_only", [False, True])
