@@ -30,9 +30,10 @@ without a card:
      fit_textures gradient, the tiled cubemap at 128^2, the FINAL frame
      with shadows, the OVERDRAW, depth-tested and split-screen frames;
   6. kernel times (CUDA events) beside the plain versions and the bound
-     (and the naive walk's figure of PRs 1-3), K3's and K4's time on their
-     fullest tile alone, each kernel's registers, spills, shared memory and
-     resident warps, the training step's time and the render paths' times.
+     (and the naive walk's figure, the bound the first kernels were held
+     to), K3's and K4's time on their fullest tile alone, each kernel's
+     registers, spills, shared memory and resident warps, the training
+     step's time and the render paths' times.
 It ends with a JSON line of kernel numbers, the card's name and power limit,
 and {"ok": true, "device": {...}} as the last line.
 """
@@ -290,7 +291,11 @@ def ptxas_resources(report):
     out, cur = {}, None
     for rep in report.values():
         for line in rep["ptxas"]:
-            m = re.search(r"entry function '([^']+)'", line)
+            # a kernel's lines follow its "Compiling entry function" and
+            # "Function properties" lines; a callee's follow its own
+            # "Function properties" line and belong to no row
+            m = re.search(r"(?:entry function '|Function properties for )"
+                          r"'?([^' ]+)", line)
             if m:
                 cur = next((row for piece, row in PTXAS_ENTRIES
                             if piece in m.group(1)), None)
@@ -1002,7 +1007,8 @@ def main():
         and, per kind of operation, the f32 operations the function needs
         on this run's data (per pair, and per (pair, pixel) the pair
         covers); walk_ms the same with the naive walk's operations (every
-        (pair, pixel) of a walked chunk), the figure of PRs 1-3."""
+        (pair, pixel) of a walked chunk), the bound the first kernels
+        were held to."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_FLOPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)

@@ -87,7 +87,8 @@ def build(names=SOURCES) -> dict:
     for n, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
         lines = [ln.strip() for ln in out.splitlines()
-                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
+                 if "registers" in ln or "spill" in ln or "Compiling" in ln
+                 or "Function properties" in ln]
         report[n] = {"seconds": time.perf_counter() - t0, "ptxas": lines,
                      "cached": False}
         if proc.returncode != 0:
