@@ -922,7 +922,7 @@ def main():
         e0.record()
         st_p, last = TCOMP.segment_states_plain(
             fields, starts, ct, kw4["height"], kw4["ty"], kw4["tx"],
-            kw4["albedo_only"], kernels.SEG_CHUNKS, tile_batch=32)
+            kw4["albedo_only"], kernels.seg_chunks(), tile_batch=32)
         e1.record()
         e1.synchronize()
         k4_plain_ms[f"state_{variant}"] = e0.elapsed_time(e1)
@@ -1111,9 +1111,10 @@ def main():
               fullest_ms=event_ms(lambda: kernels.composite_backward(
                   fields, alone, ct, res, **kw4), 10))
         # the state pass alone: every segment but a tile's last
-        seg_first = kernels.segment_table(starts).long()
+        seg = kernels.seg_chunks()
+        seg_first = kernels.segment_table(starts, seg).long()
         nseg = seg_first[1:] - seg_first[:-1]
-        hi = (nseg - 1).clamp(min=0) * kernels.SEG_CHUNKS
+        hi = (nseg - 1).clamp(min=0) * seg
         cov, n_state = covered_pairs(torch, fields, starts, kw4, variant,
                                      (torch.zeros_like(hi), hi))
         n_states = int((nseg - 1).clamp(min=0).sum())
@@ -1131,7 +1132,7 @@ def main():
               rel_err=errs[f"composite_bwd_state_{variant}_rel"],
               walk_ops=n_state * (1024 * 22 + 60))
         log(f"K4 {variant}: state pass over {n_state} pairs in {n_states} "
-            f"segments ({kernels.SEG_CHUNKS} chunks each), {cov} covered "
+            f"segments ({seg} chunks each), {cov} covered "
             f"(pair, pixel)")
     for name, variant, n_fields, line in (("min_depth", "depth", 6, 784),
                                           ("overdraw", "overdraw", 5, 833)):

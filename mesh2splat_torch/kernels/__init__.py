@@ -34,7 +34,6 @@ launches = {"texel_rows": 0, "fragment_apply": 0, "composite_full": 0,
 REC_W = 64
 MAX_LEVELS = 8
 CHUNK = 128       # pairs per chunk of a tile's walk (render/binning.py)
-SEG_CHUNKS = 8    # K4: chunks per segment, one block each
 
 
 def reset_launches():
@@ -72,11 +71,12 @@ _SIGNATURES = {
     "composite": ("m2s_composite_forward",
                   [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P]),
     "composite_bwd": ("m2s_composite_backward",
-                      [_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                       _P, _P]),
+                      [_P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                       _P]),
     "composite_bwd_states": ("m2s_composite_bwd_states",
-                             [_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                             [_P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                               _P]),
+    "composite_bwd_seg_chunks": ("m2s_composite_bwd_seg_chunks", []),
     "single_channel": ("m2s_single_channel",
                        [_P, _L, _P, _I, _I, _I, _I, _P, _P]),
     "composite_occupancy": ("m2s_composite_forward_occupancy", [_I, _P]),
@@ -86,6 +86,7 @@ _SIGNATURES = {
 # the source that holds each symbol of _SIGNATURES
 _SOURCE = {"composite_occupancy": "composite",
            "composite_bwd_states": "composite_bwd",
+           "composite_bwd_seg_chunks": "composite_bwd",
            "composite_bwd_occupancy": "composite_bwd"}
 _fns: dict = {}
 
@@ -117,9 +118,13 @@ def _check(t, name, dtype, ndim, device=None, rows=None):
 
 
 def _check_aligned(t, name):
-    # K3 and K4 stage a chunk's field rows in 16-byte cp.async pieces
+    # K3 and K4 stage a chunk's field rows whole, in 16-byte cp.async pieces:
+    # every row must start on a 16-byte boundary and hold whole chunks
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
+    if t.shape[1] % CHUNK:
+        raise ValueError(f"{name}: {t.shape[1]} pairs, not a multiple of "
+                         f"{CHUNK} (render/binning.py pads to it)")
 
 
 def _stream(device):
@@ -197,7 +202,12 @@ def composite_forward(fields, tile_starts, *, height, ty, tx, albedo_only,
     return out
 
 
-def segment_table(tile_starts, seg_chunks=SEG_CHUNKS):
+def seg_chunks() -> int:
+    """The chunks of one of K4's segments, a constant of its source."""
+    return _fn("composite_bwd_seg_chunks")()
+
+
+def segment_table(tile_starts, seg_chunks):
     """K4's segments: a tile of nc chunks is walked as ceil(nc / seg_chunks)
     segments of seg_chunks chunks (the last one shorter), one block each.
     Returns seg_first, (tiles + 1,) int32 on tile_starts' device: the
@@ -212,7 +222,7 @@ def segment_table(tile_starts, seg_chunks=SEG_CHUNKS):
         torch.int32)
 
 
-def segment_blocks(n_tiles, capacity, seg_chunks=SEG_CHUNKS):
+def segment_blocks(n_tiles, capacity, seg_chunks):
     """A bound on the segment count from shapes alone, so that the launch
     needs no read of seg_first: a tile of n pairs has at most n / 128 + 2
     chunks, and the tiles hold at most ``capacity`` pairs. Blocks past the
@@ -235,19 +245,20 @@ def composite_bwd_states(fields, tile_starts, ct, *, height, ty, tx,
                          albedo_only):
     """K4's state pass: (states, seg_first). states is (blocks, 2 or 4,
     1024) f32: for block b, the segment seg_first[t] + k = b of tile t (of
-    SEG_CHUNKS chunks), per tile-local pixel its T_a, Bpref_a (and T_g,
+    seg_chunks() chunks), per tile-local pixel its T_a, Bpref_a (and T_g,
     Bpref_g) after a walk of the segment alone from T = 1, Bpref = 0. Rows
     of a tile's last segment, and past the last segment, are not
     written."""
     _check_backward(fields, tile_starts, ct, ty, tx, albedo_only)
     dev = fields.device
-    seg_first = segment_table(tile_starts)
-    blocks = segment_blocks(ty * tx, fields.shape[1])
+    seg = seg_chunks()
+    seg_first = segment_table(tile_starts, seg)
+    blocks = segment_blocks(ty * tx, fields.shape[1], seg)
     states = torch.empty((blocks, 2 if albedo_only else 4, 1024),
                          dtype=torch.float32, device=dev)
     err = _fn("composite_bwd_states")(
         fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(),
-        seg_first.data_ptr(), blocks, SEG_CHUNKS, ty, tx, height,
+        seg_first.data_ptr(), blocks, ty, tx, height,
         int(albedo_only), ct.data_ptr(), states.data_ptr(), _stream(dev))
     _raise_on(err, "composite_bwd_states")
     launches["composite_bwd_state_albedo" if albedo_only else
@@ -262,7 +273,7 @@ def composite_backward(fields, tile_starts, ct, res, *, height, ty, tx,
     per-pixel totals res_a, res_g (render/composite.py backward_totals).
     Rows outside every tile's range come back zero. Launches the state pass
     (composite_bwd_states) and then the main pass over the segments of
-    SEG_CHUNKS chunks."""
+    seg_chunks() chunks."""
     _check_backward(fields, tile_starts, ct, ty, tx, albedo_only)
     dev = fields.device
     _check(res, "res", torch.float32, 3, dev, rows=2)
@@ -275,7 +286,7 @@ def composite_backward(fields, tile_starts, ct, res, *, height, ty, tx,
     dfields = torch.zeros_like(fields)
     err = _fn("composite_bwd")(
         fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(),
-        seg_first.data_ptr(), states.shape[0], SEG_CHUNKS, ty, tx, height,
+        seg_first.data_ptr(), states.shape[0], ty, tx, height,
         int(albedo_only), ct.data_ptr(), res.data_ptr(), states.data_ptr(),
         dfields.data_ptr(), _stream(dev))
     _raise_on(err, "composite_backward")

@@ -27,7 +27,7 @@
 // The pairs crowd into a fifth of the tiles, the fullest holding ~2.8x the
 // mean: walked by one block, that tile alone took two thirds of the time.
 //
-// Design. A tile's chunks are cut into segments of seg_chunks chunks; one
+// Design. A tile's chunks are cut into segments of SEG_CHUNKS chunks; one
 // block walks one segment. Every pair row lies in one chunk, so it is still
 // stored by exactly one block, with plain stores into the zeroed output. A
 // segment needs T and Bpref at its start: the state pass
@@ -51,7 +51,8 @@
 // term), skipped where no lane is covered, and the warp's partials go to
 // shared memory. Per window of 64 (albedo) or 32 (full) pairs, the
 // cross-warp sum reads only the warps that covered the pair, in fixed warp
-// order, so the result does not vary from run to run. The full variant
+// order, so the result does not vary from run to run, and warp 0 alone
+// chains the window's sums to the gradient rows. The full variant
 // keeps the 14 cotangent planes and the two totals of its pixels in 64 KB of
 // dynamic shared memory, to stay within 128 registers at two blocks per SM.
 // This replaces the Pallas kernel's read-modify-write of the gradient window
@@ -64,6 +65,9 @@ namespace {
 using namespace m2s_comp;
 
 constexpr int WARPS = THREADS / 32;
+// chunks per segment, one block each; kernels.segment_table reads it through
+// m2s_composite_bwd_seg_chunks
+constexpr int SEG_CHUNKS = 8;
 
 constexpr int NF_ALBEDO = F_ALPHA + 1;  // the field rows each variant reads
 constexpr int NF_FULL = F_ROUGH + 1;
@@ -154,8 +158,7 @@ struct Segment {
 
 __device__ __forceinline__ bool find_segment(const int32_t* tile_starts,
                                              const int32_t* seg_first,
-                                             int n_tiles, int seg_chunks,
-                                             Segment& sg) {
+                                             int n_tiles, Segment& sg) {
   const int b = blockIdx.x;
   if (b >= seg_first[n_tiles]) return false;
   int lo = 0, hi = n_tiles;  // seg_first[lo] <= b < seg_first[hi]
@@ -170,8 +173,8 @@ __device__ __forceinline__ bool find_segment(const int32_t* tile_starts,
   sg.end = tile_starts[lo + 1];
   sg.aligned = (sg.start / CHUNK) * CHUNK;
   const int64_t num_chunks = (sg.end - sg.aligned + CHUNK - 1) / CHUNK;
-  sg.c0 = (int64_t)sg.k * seg_chunks;
-  sg.c1 = sg.c0 + seg_chunks < num_chunks ? sg.c0 + seg_chunks : num_chunks;
+  sg.c0 = (int64_t)sg.k * SEG_CHUNKS;
+  sg.c1 = sg.c0 + SEG_CHUNKS < num_chunks ? sg.c0 + SEG_CHUNKS : num_chunks;
   return true;
 }
 
@@ -283,8 +286,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 segment_state_kernel(const float* __restrict__ fields, int64_t p,
                      const int32_t* __restrict__ tile_starts,
                      const int32_t* __restrict__ seg_first, int n_tiles,
-                     int seg_chunks, int tx, float height,
-                     const float* __restrict__ ct,
+                     int tx, float height, const float* __restrict__ ct,
                      float* __restrict__ states) {
   constexpr int NF = ALBEDO ? NF_ALBEDO : NF_FULL;
   constexpr int NST = ALBEDO ? NST_ALBEDO : NST_FULL;
@@ -294,7 +296,7 @@ segment_state_kernel(const float* __restrict__ fields, int64_t p,
   extern __shared__ float dyn[];
 
   Segment sg;
-  if (!find_segment(tile_starts, seg_first, n_tiles, seg_chunks, sg) ||
+  if (!find_segment(tile_starts, seg_first, n_tiles, sg) ||
       sg.k == sg.nseg - 1)
     return;
   const int ti = sg.tile / tx;
@@ -404,8 +406,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 composite_bwd_kernel(const float* __restrict__ fields, int64_t p,
                      const int32_t* __restrict__ tile_starts,
                      const int32_t* __restrict__ seg_first, int n_tiles,
-                     int seg_chunks, int tx, float height,
-                     const float* __restrict__ ct,
+                     int tx, float height, const float* __restrict__ ct,
                      const float* __restrict__ res,
                      const float* __restrict__ states,
                      float* __restrict__ dfields) {
@@ -424,7 +425,7 @@ composite_bwd_kernel(const float* __restrict__ fields, int64_t p,
   extern __shared__ float dyn[];
 
   Segment sg;
-  if (!find_segment(tile_starts, seg_first, n_tiles, seg_chunks, sg)) return;
+  if (!find_segment(tile_starts, seg_first, n_tiles, sg)) return;
   const int ti = sg.tile / tx;
   const float tjf = (float)(sg.tile - ti * tx) * (float)TILE;
   const float py0 = height - (float)ti * (float)TILE;
@@ -521,7 +522,9 @@ composite_bwd_kernel(const float* __restrict__ fields, int64_t p,
             }
             run_a[q] = run_a[q] + sdot_a * gw_a;
             const float bpref_a = bpa[q] + run_a[q];
-            // da and dgg feed only the gradient rows: a division of 2 ulp
+            // da and dgg feed only the gradient rows, and their divisors lie
+            // in [1e-4, 1]: __fdividef is within 2 ulp there, and IEEE
+            // division's slow path costs K4 registers and spills (PERF.md)
             const float da = -__fdividef(px.cot(14, q) - bpref_a, 1.0f - ag);
             float dl_dg = sdot_a * e_a + da * alpha;
             float gw_g = 0.0f;
@@ -593,9 +596,11 @@ composite_bwd_kernel(const float* __restrict__ fields, int64_t p,
         part[rr][0][k] = s;  // read and written by this thread alone
       }
       __syncthreads();
-      if (threadIdx.x < WINDOW) {
-        // the per-pair chain to the mean, conic, colour and alpha rows
-        const int rr = threadIdx.x;
+      // the per-pair chain to the mean, conic, colour and alpha rows, in
+      // warp 0 alone: the next window's walk writes part[][0] from warp 0
+      // only, so no warp can overwrite a sum that this chain still reads
+      // (the next barrier comes after that walk)
+      for (int rr = lane; warp == 0 && rr < WINDOW; rr += 32) {
         const int r = w0 + rr;
         if (r >= lo && r < hi) {
           const int64_t row = base + r;
@@ -633,6 +638,9 @@ composite_bwd_kernel(const float* __restrict__ fields, int64_t p,
           }
         }
       }
+      // and every lane of warp 0 has read its sums before any of them
+      // writes the next window's partials
+      __syncwarp();
     }
 #pragma unroll
     for (int q = 0; q < PPT; ++q) {
@@ -688,18 +696,18 @@ int occupancy(K kernel, int* blocks) {
 extern "C" int m2s_composite_bwd_states(const float* fields, int64_t p,
                                         const int32_t* tile_starts,
                                         const int32_t* seg_first, int blocks,
-                                        int seg_chunks, int ty, int tx,
-                                        int height, int albedo_only,
+                                        int ty, int tx, int height,
+                                        int albedo_only,
                                         const float* ct, float* states,
                                         void* stream) {
   const float h = (float)height;
   return albedo_only
              ? launch<true>(segment_state_kernel<true>, blocks, stream,
-                            fields, p, tile_starts, seg_first, ty * tx,
-                            seg_chunks, tx, h, ct, states)
+                            fields, p, tile_starts, seg_first, ty * tx, tx, h,
+                            ct, states)
              : launch<false>(segment_state_kernel<false>, blocks, stream,
-                             fields, p, tile_starts, seg_first, ty * tx,
-                             seg_chunks, tx, h, ct, states);
+                             fields, p, tile_starts, seg_first, ty * tx, tx,
+                             h, ct, states);
 }
 
 // The main pass over `blocks` blocks, after the state pass has filled
@@ -707,20 +715,23 @@ extern "C" int m2s_composite_bwd_states(const float* fields, int64_t p,
 extern "C" int m2s_composite_backward(const float* fields, int64_t p,
                                       const int32_t* tile_starts,
                                       const int32_t* seg_first, int blocks,
-                                      int seg_chunks, int ty, int tx,
-                                      int height, int albedo_only,
-                                      const float* ct, const float* res,
+                                      int ty, int tx, int height,
+                                      int albedo_only, const float* ct,
+                                      const float* res,
                                       const float* states, float* dfields,
                                       void* stream) {
   const float h = (float)height;
   return albedo_only
              ? launch<true>(composite_bwd_kernel<true>, blocks, stream,
-                            fields, p, tile_starts, seg_first, ty * tx,
-                            seg_chunks, tx, h, ct, res, states, dfields)
+                            fields, p, tile_starts, seg_first, ty * tx, tx, h,
+                            ct, res, states, dfields)
              : launch<false>(composite_bwd_kernel<false>, blocks, stream,
-                             fields, p, tile_starts, seg_first, ty * tx,
-                             seg_chunks, tx, h, ct, res, states, dfields);
+                             fields, p, tile_starts, seg_first, ty * tx, tx,
+                             h, ct, res, states, dfields);
 }
+
+// The chunks of one segment.
+extern "C" int m2s_composite_bwd_seg_chunks() { return SEG_CHUNKS; }
 
 // Resident blocks of THREADS threads per SM of the main pass (state = 0) or
 // the state pass (state = 1) of one variant, from the occupancy calculator.

@@ -196,7 +196,7 @@ def test_kernel_k3_adversarial(cuda, albedo_only):
 def test_kernel_k4_adversarial(cuda, albedo_only):
     """K4 on the same pairs against its plain version for a random
     cotangent: each field row within 1e-3 of its largest magnitude, padding
-    rows and rows past the last pair zero, the same bits on a second run;
+    rows and rows past the last pair zero, the same bits on 8 more runs;
     segment boundaries fall inside the 45-chunk tile; the state pass's rows
     against its plain version."""
     fields, starts, ty, tx = _adversarial_pairs(cuda, albedo_only)
@@ -209,19 +209,42 @@ def test_kernel_k4_adversarial(cuda, albedo_only):
                                          tx, albedo_only)
     nf = 9 if albedo_only else 18
     scale = ref[:nf].abs().amax(1)
-    seg = kernels.SEG_CHUNKS
+    seg = kernels.seg_chunks()
     assert int(TCOMP._tile_ranges(starts)[3][LONG_TILE]) > 2 * seg
     got = kernels.composite_backward(fields, starts, ct, res, **kw)
     assert bool(((got - ref)[:nf].abs().amax(1) <= 1e-3 * scale).all())
     assert not got[nf:].any() and not got[:, int(starts[-1]):].any()
-    again = kernels.composite_backward(fields, starts, ct, res, **kw)
-    assert torch.equal(got, again)
+    for _ in range(8):
+        again = kernels.composite_backward(fields, starts, ct, res, **kw)
+        assert torch.equal(got, again)
     states, _ = kernels.composite_bwd_states(fields, starts, ct, **kw)
     want, last = TCOMP.segment_states_plain(fields, starts, ct, H_ADV, ty, tx,
                                             albedo_only, seg)
     keep = ~last
     torch.testing.assert_close(states[:want.shape[0]][keep], want[keep],
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cut", [4, 126])
+def test_composite_wrappers_reject_unpadded_pairs(cuda, cut):
+    """K3 and K4 stage whole chunks of 128 pairs in 16-byte copies: a pair
+    axis that is not a multiple of 128 (of 4, or not even that) raises
+    ValueError in every wrapper, and nothing is launched."""
+    fields, starts, ty, tx = _adversarial_pairs(cuda, True)
+    narrow = fields[:, :fields.shape[1] - cut].contiguous()
+    kw = dict(height=H_ADV, ty=ty, tx=tx, albedo_only=True)
+    ct = torch.zeros((16, ty * 32, tx * 32), device=cuda)
+    res = torch.zeros((2, ty * 32, tx * 32), device=cuda)
+    before = dict(kernels.launches)
+    for call in (lambda: kernels.composite_forward(narrow, starts, **kw),
+                 lambda: kernels.composite_bwd_states(narrow, starts, ct,
+                                                      **kw),
+                 lambda: kernels.composite_backward(narrow, starts, ct, res,
+                                                    **kw)):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            call()
+    assert kernels.launches == before
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("albedo_only", [False, True])
