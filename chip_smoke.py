@@ -23,15 +23,16 @@ without a card:
      read after it, and no render may drop a class-C pair;
   4. each kernel against its plain PyTorch version on the same CUDA tensors,
      at the shapes of phase 3 (K3 also the pairs each tile walked; K4's
-     state pass its per-segment states), with the tile histograms of the
-     composite's inputs;
+     state pass its per-segment states; K4, K5 and K6 a second run
+     bit-equal to the first), with the tile histograms of the inputs of
+     K3-K6;
   5. the whole slice on the card against the same code on the CPU, small:
      conversion and render, one fit_splats loss and gradient, one
      fit_textures gradient, the tiled cubemap at 128^2, the FINAL frame
      with shadows, the OVERDRAW, depth-tested and split-screen frames;
   6. kernel times (CUDA events) beside the plain versions and the bound
      (and the naive walk's figure, the bound the first kernels were held
-     to), K3's and K4's time on their fullest tile alone, each kernel's
+     to), K3-K6's time on their fullest tile alone, each kernel's
      registers, spills, shared memory and resident warps, the training
      step's time and the render paths' times.
 It ends with a JSON line of kernel numbers, the card's name and power limit,
@@ -955,14 +956,20 @@ def main():
         k56_plain_ms[name] = e0.elapsed_time(e1)
         equal = bool(torch.equal(got_k, ref_p))
         errs[name] = float((got_k - ref_p).abs().max())
-        per_tile = starts[1:] - starts[:-1]
+        # the segments combine by atomics in any order: the same bits
+        again = getattr(kernels, name)(fields, starts, **kw5)
+        rerun_equal = bool(torch.equal(got_k.view(torch.int32),
+                                       again.view(torch.int32)))
+        seg = kernels.single_channel_seg_chunks()
+        n_seg = int(kernels.segment_table(starts, seg)[-1])
         log(f"{'K5' if name == 'min_depth' else 'K6'} {name}: "
-            f"{kw5['ty'] * kw5['tx']} tiles ({int((per_tile > 0).sum())} "
-            f"with pairs, the fullest {int(per_tile.max())}), "
-            f"{int(starts[-1])} pairs, "
+            f"{int(starts[-1])} pairs in {n_seg} segments of {seg} chunks, "
             f"{int((got_k != ref_p).sum())} pixels differ (max |diff| "
-            f"{errs[name]:.3g}), equal to the plain version: {equal}")
-        check(equal, f"{name} differs from its plain version")
+            f"{errs[name]:.3g}), equal to the plain version: {equal}, a "
+            f"second run bit-equal {rerun_equal}; tiles "
+            f"{tile_histogram(torch, starts)}")
+        check(equal and rerun_equal,
+              f"{name} differs from its plain version or from itself")
 
     # ---- 5. the slice on the card vs the same code on the CPU ----------
     small = synth_primitive(2_000, tex=128, seed=1)
@@ -1015,8 +1022,8 @@ def main():
         walk = max(t_bytes, (walk_ops if walk_ops is not None else nops)
                    / F32_FLOPS_PER_S * 1e3)
         regs, spill, smem = resources.get(name, (None, None, None))
-        warps = (8 * kernels.resident_blocks(name)
-                 if name.startswith("composite") else None)
+        warps = (8 * kernels.resident_blocks(name) if name not in
+                 ("texel_rows", "fragment_apply") else None)
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paths[path][name], path=path,
@@ -1140,16 +1147,18 @@ def main():
         pairs = int(starts[-1])
         ty, tx = kw5["ty"], kw5["tx"]
         cov, _ = covered_pairs(torch, fields, starts, kw5, variant)
+        alone = fullest_alone(torch, starts)
+        fn = getattr(kernels, name)
         entry(name, "mesh2splat_torch/kernels/csrc/single_channel.cu",
               f"mesh2splat_tpu/render/composite.py:{line}",
-              event_ms(lambda: getattr(kernels, name)(fields, starts, **kw5),
-                       10),
+              event_ms(lambda: fn(fields, starts, **kw5), 20),
               k56_plain_ms[name],
               n_fields * pairs * 4 + (ty * tx + 1) * 4
               + ty * 32 * tx * 32 * 4,
               pairs * 60 + cov * (22 + 3), errs[name],
               path="cubemap" if name == "min_depth" else "overdraw",
-              walk_ops=pairs * (1024 * 22 + 60))
+              walk_ops=pairs * (1024 * 22 + 60),
+              fullest_ms=event_ms(lambda: fn(fields, alone, **kw5), 20))
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms,"
             f" bound {r['bound_ms']:.4f} ms by {r['bound_by']}, naive walk "

@@ -34,6 +34,7 @@ launches = {"texel_rows": 0, "fragment_apply": 0, "composite_full": 0,
 REC_W = 64
 MAX_LEVELS = 8
 CHUNK = 128       # pairs per chunk of a tile's walk (render/binning.py)
+MIN_DEPTH_NONE = 3e38   # K5's value of a pixel no pair covers
 
 
 def reset_launches():
@@ -78,7 +79,9 @@ _SIGNATURES = {
                               _P]),
     "composite_bwd_seg_chunks": ("m2s_composite_bwd_seg_chunks", []),
     "single_channel": ("m2s_single_channel",
-                       [_P, _L, _P, _I, _I, _I, _I, _P, _P]),
+                       [_P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
+    "single_channel_seg_chunks": ("m2s_single_channel_seg_chunks", []),
+    "single_channel_occupancy": ("m2s_single_channel_occupancy", [_I, _P]),
     "composite_occupancy": ("m2s_composite_forward_occupancy", [_I, _P]),
     "composite_bwd_occupancy": ("m2s_composite_backward_occupancy",
                                 [_I, _I, _P]),
@@ -87,7 +90,9 @@ _SIGNATURES = {
 _SOURCE = {"composite_occupancy": "composite",
            "composite_bwd_states": "composite_bwd",
            "composite_bwd_seg_chunks": "composite_bwd",
-           "composite_bwd_occupancy": "composite_bwd"}
+           "composite_bwd_occupancy": "composite_bwd",
+           "single_channel_seg_chunks": "single_channel",
+           "single_channel_occupancy": "single_channel"}
 _fns: dict = {}
 
 
@@ -118,7 +123,7 @@ def _check(t, name, dtype, ndim, device=None, rows=None):
 
 
 def _check_aligned(t, name):
-    # K3 and K4 stage a chunk's field rows whole, in 16-byte cp.async pieces:
+    # K3-K6 stage a chunk's field rows whole, in 16-byte cp.async pieces:
     # every row must start on a 16-byte boundary and hold whole chunks
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
@@ -208,10 +213,11 @@ def seg_chunks() -> int:
 
 
 def segment_table(tile_starts, seg_chunks):
-    """K4's segments: a tile of nc chunks is walked as ceil(nc / seg_chunks)
-    segments of seg_chunks chunks (the last one shorter), one block each.
-    Returns seg_first, (tiles + 1,) int32 on tile_starts' device: the
-    number of segments before each tile. Works on any device."""
+    """The segments of K4, K5 and K6: a tile of nc chunks is walked as
+    ceil(nc / seg_chunks) segments of seg_chunks chunks (the last one
+    shorter), one block each. Returns seg_first, (tiles + 1,) int32 on
+    tile_starts' device: the number of segments before each tile. Works on
+    any device."""
     ts = tile_starts.long()
     starts, ends = ts[:-1], ts[1:]
     aligned = torch.div(starts, CHUNK, rounding_mode="floor") * CHUNK
@@ -297,11 +303,15 @@ def composite_backward(fields, tile_starts, ct, res, *, height, ty, tx,
 
 def resident_blocks(name: str) -> int:
     """Blocks of 256 threads of kernel ``name`` (composite_full / _albedo,
-    composite_bwd_full / _albedo, composite_bwd_state_full / _albedo)
-    resident on one SM, from the CUDA occupancy calculator."""
+    composite_bwd_full / _albedo, composite_bwd_state_full / _albedo,
+    min_depth, overdraw) resident on one SM, from the CUDA occupancy
+    calculator."""
     blocks = ctypes.c_int(0)
     albedo = int(name.endswith("albedo"))
-    if name.startswith("composite_bwd"):
+    if name in ("min_depth", "overdraw"):
+        err = _fn("single_channel_occupancy")(int(name == "min_depth"),
+                                              ctypes.byref(blocks))
+    elif name.startswith("composite_bwd"):
         err = _fn("composite_bwd_occupancy")(
             albedo, int("_state_" in name), ctypes.byref(blocks))
     else:
@@ -310,15 +320,29 @@ def resident_blocks(name: str) -> int:
     return blocks.value
 
 
+def single_channel_seg_chunks() -> int:
+    """The chunks of one of K5's and K6's segments, a constant of their
+    source."""
+    return _fn("single_channel_seg_chunks")()
+
+
 def _single_channel(fields, tile_starts, height, ty, tx, min_depth):
+    # one block per segment of single_channel_seg_chunks() chunks; each
+    # combines its pixels' partial min or count into the filled output
     _check(fields, "fields", torch.float32, 2, rows=8)
     _check(tile_starts, "tile_starts", torch.int32, 1, fields.device,
            rows=ty * tx + 1)
-    out = torch.empty((1, ty * 32, tx * 32), dtype=torch.float32,
-                      device=fields.device)
+    _check_aligned(fields, "fields")
+    seg = single_channel_seg_chunks()
+    seg_first = segment_table(tile_starts, seg)
+    blocks = segment_blocks(ty * tx, fields.shape[1], seg)
+    out = torch.full((1, ty * 32, tx * 32),
+                     MIN_DEPTH_NONE if min_depth else 0.0,
+                     dtype=torch.float32, device=fields.device)
     err = _fn("single_channel")(
-        fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(), ty, tx,
-        height, int(min_depth), out.data_ptr(), _stream(fields.device))
+        fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(),
+        seg_first.data_ptr(), blocks, ty, tx, height, int(min_depth),
+        out.data_ptr(), _stream(fields.device))
     name = "min_depth" if min_depth else "overdraw"
     _raise_on(err, name)
     launches[name] += 1

@@ -148,36 +148,6 @@ __device__ __forceinline__ int reduce_slot(int nterms, int lane) {
   return owner && size == 1 ? base : -1;
 }
 
-// One block's segment: block b walks chunks [c0, c1) of tile `tile`,
-// segment k of its nseg. seg_first (n_tiles + 1) counts the segments before
-// each tile; blocks past the last segment have none.
-struct Segment {
-  int tile, k, nseg;
-  int64_t start, end, aligned, c0, c1;
-};
-
-__device__ __forceinline__ bool find_segment(const int32_t* tile_starts,
-                                             const int32_t* seg_first,
-                                             int n_tiles, Segment& sg) {
-  const int b = blockIdx.x;
-  if (b >= seg_first[n_tiles]) return false;
-  int lo = 0, hi = n_tiles;  // seg_first[lo] <= b < seg_first[hi]
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (seg_first[mid] <= b) lo = mid; else hi = mid;
-  }
-  sg.tile = lo;
-  sg.k = b - seg_first[lo];
-  sg.nseg = seg_first[lo + 1] - seg_first[lo];
-  sg.start = tile_starts[lo];
-  sg.end = tile_starts[lo + 1];
-  sg.aligned = (sg.start / CHUNK) * CHUNK;
-  const int64_t num_chunks = (sg.end - sg.aligned + CHUNK - 1) / CHUNK;
-  sg.c0 = (int64_t)sg.k * SEG_CHUNKS;
-  sg.c1 = sg.c0 + SEG_CHUNKS < num_chunks ? sg.c0 + SEG_CHUNKS : num_chunks;
-  return true;
-}
-
 // What every thread of both passes holds: its 4 pixels, one in each of its
 // warp's cull blocks, and their cotangents: the albedo variant's 5 per pixel
 // in registers, the full variant's 16 in dynamic shared memory, written and
@@ -296,7 +266,7 @@ segment_state_kernel(const float* __restrict__ fields, int64_t p,
   extern __shared__ float dyn[];
 
   Segment sg;
-  if (!find_segment(tile_starts, seg_first, n_tiles, sg) ||
+  if (!find_segment<SEG_CHUNKS>(tile_starts, seg_first, n_tiles, sg) ||
       sg.k == sg.nseg - 1)
     return;
   const int ti = sg.tile / tx;
@@ -425,7 +395,7 @@ composite_bwd_kernel(const float* __restrict__ fields, int64_t p,
   extern __shared__ float dyn[];
 
   Segment sg;
-  if (!find_segment(tile_starts, seg_first, n_tiles, sg)) return;
+  if (!find_segment<SEG_CHUNKS>(tile_starts, seg_first, n_tiles, sg)) return;
   const int ti = sg.tile / tx;
   const float tjf = (float)(sg.tile - ti * tx) * (float)TILE;
   const float py0 = height - (float)ti * (float)TILE;

@@ -3,8 +3,9 @@
 // K5/K6): the tile geometry, the pair-field rows, the quad axes from the
 // conic, and the per-pair plane coefficients of the falloff power and of
 // the quad's (u, v), so that every kernel makes exactly the coverage
-// decisions K3 makes. K3 and K4 also share the per-warp pixel blocks, the
-// cull and the cp.async staging of a chunk's field rows.
+// decisions K3 makes. All four share the per-warp pixel blocks, the cull
+// and the cp.async staging of a chunk's field rows; K4, K5 and K6 the cut
+// of a tile's chunks into segments, one block each.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -130,7 +131,7 @@ __device__ __forceinline__ bool falloff(float (&sp)[NS][CHUNK], int r,
   return true;
 }
 
-// ---- K3 and K4: compact per-warp pixel blocks and the per-warp cull ----
+// ---- compact per-warp pixel blocks and the per-warp cull ----
 //
 // The cull works on blocks of 8x4 pixels, 32 to a tile: block (bx, by)
 // holds the pixels [8 bx, 8 bx + 8) x [4 by, 4 by + 4), lane l of a warp
@@ -180,7 +181,7 @@ __device__ __forceinline__ bool plane_reaches(float c0, float c1, float c2,
   return !(fabsf(mid) - half > 1.0f + margin);
 }
 
-// ---- the stage of K3 and K4: pair-major rows and the cull's planes ----
+// ---- the stage: pair-major rows and the cull's planes ----
 //
 // Row r of the pair-major stage holds pair r's 12 plane coefficients, then
 // its fields from F_COL_R on (colour and alpha; the full variant's normal,
@@ -194,7 +195,8 @@ __device__ __forceinline__ bool plane_reaches(float c0, float c1, float c2,
 enum { C_U0 = 0, C_U1, C_U2, C_V0, C_V1, C_V2, C_END };
 enum { P_COL_R = 12 };
 
-// floats per row: 12 planes, 4 or 13 fields, (CHAIN) 5 chain terms, padding
+// floats per row: 12 planes, the fields from F_COL_R on (K3/K4: 4 or 13;
+// K5: its depth, K6: none), (CHAIN) 5 chain terms, padding
 template <int NF, bool CHAIN>
 __host__ __device__ constexpr int pair_row() {
   return (12 + (NF - F_COL_R) + (CHAIN ? 5 : 0) + 3) / 4 * 4;
@@ -286,15 +288,15 @@ __device__ __forceinline__ const float* row_chain(const float (&pp)[CHUNK][PR],
 //
 // Rows [0, NF) of the field-major (F_pad, p) buffer, columns
 // [base, base + CHUNK), into dst[NF][CHUNK], in 16-byte pieces spread over
-// the block's threads, as one commit group. base is a multiple of CHUNK and
-// p of CHUNK (render/binning.py pads the pair axis), so every piece is
+// the block's NT threads, as one commit group. base is a multiple of CHUNK
+// and p of CHUNK (render/binning.py pads the pair axis), so every piece is
 // 16-byte aligned once the buffer is (the wrapper checks).
-template <int NF>
+template <int NF, int NT = THREADS>
 __device__ __forceinline__ void stage_fields(float (&dst)[NF][CHUNK],
                                              const float* fields, int64_t p,
                                              int64_t base) {
   constexpr int PIECES = NF * CHUNK / 4;
-  for (int i = threadIdx.x; i < PIECES; i += THREADS) {
+  for (int i = threadIdx.x; i < PIECES; i += NT) {
     const int f = i / (CHUNK / 4);
     const int col = (i - f * (CHUNK / 4)) * 4;
     const uint32_t s =
@@ -308,6 +310,41 @@ __device__ __forceinline__ void stage_fields(float (&dst)[NF][CHUNK],
 
 __device__ __forceinline__ void wait_staged() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---- segments: a tile's chunks over several blocks ----
+//
+// A tile of nc chunks is walked as ceil(nc / SEG) segments of SEG chunks
+// (the last one shorter), one block each; kernels.segment_table gives
+// seg_first (n_tiles + 1), the segments before each tile. The grid is a
+// bound from shapes (kernels.segment_blocks), so blocks past the last
+// segment have none.
+struct Segment {
+  int tile, k, nseg;
+  int64_t start, end, aligned, c0, c1;  // block walks chunks [c0, c1)
+};
+
+template <int SEG>
+__device__ __forceinline__ bool find_segment(const int32_t* tile_starts,
+                                             const int32_t* seg_first,
+                                             int n_tiles, Segment& sg) {
+  const int b = blockIdx.x;
+  if (b >= seg_first[n_tiles]) return false;
+  int lo = 0, hi = n_tiles;  // seg_first[lo] <= b < seg_first[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (seg_first[mid] <= b) lo = mid; else hi = mid;
+  }
+  sg.tile = lo;
+  sg.k = b - seg_first[lo];
+  sg.nseg = seg_first[lo + 1] - seg_first[lo];
+  sg.start = tile_starts[lo];
+  sg.end = tile_starts[lo + 1];
+  sg.aligned = (sg.start / CHUNK) * CHUNK;
+  const int64_t num_chunks = (sg.end - sg.aligned + CHUNK - 1) / CHUNK;
+  sg.c0 = (int64_t)sg.k * SEG;
+  sg.c1 = sg.c0 + SEG < num_chunks ? sg.c0 + SEG : num_chunks;
+  return true;
 }
 
 }  // namespace m2s_comp

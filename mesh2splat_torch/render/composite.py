@@ -27,9 +27,11 @@ The forward-only walkers (kernel K5 ``min_depth_tiles``, kernel K6
 per pixel, the minimum ``depth`` field over the covering pairs (3e38 where
 none) or the count of covering pairs. A pair covers a pixel where its
 falloff g is above 0 (inside the quad and not underflowed), the coverage of
-the composite. Both are order-free.
+the composite. Both are order-free, so their kernels walk a tile's
+segments independently and combine them in any order
+(``min_depth_plain(seg_chunks=)`` / ``overdraw_plain(seg_chunks=)``).
 
-The kernels K3 and K4 skip, for each warp's 8x4-pixel cull block, the pairs
+The kernels K3-K6 skip, for each warp's 8x4-pixel cull block, the pairs
 whose quad provably misses every pixel of the block (``cull_plain`` is the
 rule's plain mirror, which the tests hold to the coverage of
 ``_chunk_planes``); a skipped pair adds nothing, so the plain versions need
@@ -530,16 +532,23 @@ def composite_tiles(fields, tile_starts, height, ty, tx, albedo_only=False):
     return _Composite.apply(fields, tile_starts, height, ty, tx, albedo_only)
 
 
-MIN_DEPTH_NONE = 3e38   # the min-depth value of a pixel no pair covers
+MIN_DEPTH_NONE = kernels.MIN_DEPTH_NONE  # a pixel no pair covers
 
 
 def _single_channel_plain(fields, tile_starts, height, ty, tx, variant,
-                          tile_batch):
+                          tile_batch, seg_chunks=None, fold_order=None):
     """The walk of K5 ("depth" variant: the minimum depth) and K6
     ("overdraw": the count) over batches of tiles, every chunk of each
-    tile. Returns (1, ty*32, tx*32)."""
+    tile. Returns (1, ty*32, tx*32).
+
+    With ``seg_chunks``, the kernels' segmented walk: each segment of
+    ``seg_chunks`` chunks (``kernels.segment_table``) is walked alone from
+    the identity (3e38 or 0), and each tile's segments are then folded in
+    the order ``fold_order`` (a permutation of the segment indices; by
+    default ascending)."""
     idx = B.field_index(variant)
     min_depth = variant == "depth"
+    ident = MIN_DEPTH_NONE if min_depth else 0.0
     dev = fields.device
     p_cap = fields.shape[1]
     n_tiles = ty * tx
@@ -547,14 +556,23 @@ def _single_channel_plain(fields, tile_starts, height, ty, tx, variant,
     pix = _pixel_coords(dev)
     lane = torch.arange(CHUNK, device=dev)
     out = torch.empty((n_tiles, NPX), dtype=torch.float32, device=dev)
+    if seg_chunks:
+        seg_first = kernels.segment_table(tile_starts, seg_chunks).long()
+        parts = torch.full((int(seg_first[-1]), NPX), ident,
+                           dtype=torch.float32, device=dev)
     for b0 in range(0, n_tiles, tile_batch):
         tiles = torch.arange(b0, min(b0 + tile_batch, n_tiles), device=dev)
         nb = tiles.shape[0]
         tjf, py0 = _tile_origin(tiles, tx, height)
-        acc = torch.full((nb, NPX), MIN_DEPTH_NONE if min_depth else 0.0,
-                         dtype=torch.float32, device=dev)
+        acc = torch.full((nb, NPX), ident, dtype=torch.float32, device=dev)
         s, e, al, nc = starts[tiles], ends[tiles], aligned[tiles], num_chunks[tiles]
         for c in range(int(nc.max()) if nb else 0):
+            if seg_chunks and c > 0 and c % seg_chunks == 0:
+                # segment c // seg_chunks starts here in the tiles that
+                # still have chunks: the one before it ends
+                go = nc > c
+                parts[seg_first[tiles[go]] + c // seg_chunks - 1] = acc[go]
+                acc[go] = ident
             act = torch.nonzero(nc > c)[:, 0]   # the tiles with a chunk c
             rows = al[act, None] + c * CHUNK + lane  # (na, CHUNK)
             live = (rows >= s[act, None]) & (rows < e[act, None])
@@ -568,23 +586,59 @@ def _single_channel_plain(fields, tile_starts, height, ty, tx, variant,
                 acc[act] = torch.minimum(acc[act], z.amin(dim=1))
             else:
                 acc[act] += cov.sum(dim=1).to(torch.float32)
-        out[b0:b0 + nb] = acc
+        if seg_chunks:   # each busy tile's last segment
+            busy = nc > 0
+            parts[seg_first[tiles[busy] + 1] - 1] = acc[busy]
+        else:
+            out[b0:b0 + nb] = acc
+    if seg_chunks:
+        out = _fold_segments(parts, seg_first, ident, min_depth, fold_order)
     return (out.reshape(ty, tx, TILE_H, TILE_W).permute(0, 2, 1, 3)
             .reshape(1, ty * TILE_H, tx * TILE_W))
 
 
+def _fold_segments(parts, seg_first, ident, min_depth, order):
+    """(n_tiles, NPX): each tile's segment partials (rows of ``parts``)
+    folded into the identity in ``order``, one segment of every tile per
+    round: torch.minimum (which propagates NaN) or the sum."""
+    n_tiles = seg_first.shape[0] - 1
+    n_seg = parts.shape[0]
+    dev = parts.device
+    seg_tile = torch.repeat_interleave(
+        torch.arange(n_tiles, device=dev), seg_first[1:] - seg_first[:-1])
+    order = (torch.arange(n_seg, device=dev) if order is None
+             else torch.as_tensor(order, device=dev).long())
+    # each ordered segment's rank among its tile's segments in that order
+    by_tile = torch.sort(seg_tile[order], stable=True).indices
+    rank = torch.empty_like(order)
+    rank[by_tile] = (torch.arange(n_seg, device=dev)
+                     - seg_first[seg_tile[order[by_tile]]])
+    out = torch.full((n_tiles, NPX), ident, dtype=torch.float32, device=dev)
+    for j in range(int(rank.max()) + 1 if n_seg else 0):
+        sel = order[rank == j]
+        t = seg_tile[sel]
+        out[t] = (torch.minimum(out[t], parts[sel]) if min_depth
+                  else out[t] + parts[sel])
+    return out
+
+
 @torch.no_grad()
-def min_depth_plain(fields, tile_starts, height, ty, tx, tile_batch=256):
-    """Plain version of K5 on "depth"-variant fields."""
+def min_depth_plain(fields, tile_starts, height, ty, tx, tile_batch=256,
+                    seg_chunks=None, fold_order=None):
+    """Plain version of K5 on "depth"-variant fields; with ``seg_chunks``
+    (and ``fold_order``) the kernel's segmented walk."""
     return _single_channel_plain(fields, tile_starts, height, ty, tx, "depth",
-                                 tile_batch)
+                                 tile_batch, seg_chunks, fold_order)
 
 
 @torch.no_grad()
-def overdraw_plain(fields, tile_starts, height, ty, tx, tile_batch=256):
-    """Plain version of K6 on "overdraw"-variant fields."""
+def overdraw_plain(fields, tile_starts, height, ty, tx, tile_batch=256,
+                   seg_chunks=None, fold_order=None):
+    """Plain version of K6 on "overdraw"-variant fields; with ``seg_chunks``
+    (and ``fold_order``) the kernel's segmented walk."""
     return _single_channel_plain(fields, tile_starts, height, ty, tx,
-                                 "overdraw", tile_batch)
+                                 "overdraw", tile_batch, seg_chunks,
+                                 fold_order)
 
 
 def min_depth_tiles(binned: B.BinnedPairs, height, ty, tx):

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where mesh2splat_torch's time goes on a CUDA card: torch.profiler over
 chip_smoke.py's full-size workload (20k-triangle sphere, resolution 512,
-1080p ALBEDO render, 1080p FINAL render with shadows, one fit_splats step
-over 2 views at 1080p), after a warm-up.
+1080p ALBEDO render, 1080p FINAL render with shadows, bench.py's 1024^2
+shadow cubemap, 1080p OVERDRAW render, one fit_splats step over 2 views at
+1080p), after a warm-up.
 
     python3 profile_port.py [--rows 15]
 
-Prints, for `Scene.convert`, each `Scene.render` and the training step
+Prints, for `Scene.convert`, each render and the training step
 separately, the host wall time of the profiled call, the summed device
 time, and the device ops with the most device time. Needs a card.
 """
@@ -79,6 +80,25 @@ def main():
                                  height=cs.H_PX, fov_deg=60.0,
                                  mode=RenderMode.FINAL, shadows=True),
             args.rows)
+    from mesh2splat_torch.render import binning as TB
+    from mesh2splat_torch.render.shadows import (
+        _shadow_prep_fused, render_shadow_cubemap,
+    )
+
+    dev = torch.device("cuda")
+    mult = scene.last_config.scale_multiplier
+    light = torch.tensor(cs.BENCH_LIGHT, device=dev)
+    far = torch.tensor(cs.BENCH_FAR, device=dev)
+    cap = TB.round_pow2_budget(int(_shadow_prep_fused(
+        sp, light, far, mult, cs.SHADOW_PX)[2]))
+    profile(f"shadow cubemap {cs.SHADOW_PX}^2 x 6 (bench.py's settings)",
+            lambda: render_shadow_cubemap(
+                sp, light, far, mult, size=cs.SHADOW_PX, method="tiled",
+                pair_capacity=cap, device=dev), args.rows)
+    profile("Scene.render(1920x1080, OVERDRAW)",
+            lambda: scene.render(sp, eye=cs.EYE, width=cs.W_PX,
+                                 height=cs.H_PX, fov_deg=60.0,
+                                 mode=RenderMode.OVERDRAW), args.rows)
 
     from mesh2splat_torch.train import fit as TFIT
 

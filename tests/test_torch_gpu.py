@@ -113,17 +113,18 @@ W_ADV, H_ADV = 200, 70   # 7 x 3 tiles; the last row of tiles is padded
 LONG_TILE = 8            # tile (1, 1): 45 chunks with an opaque stack
 
 
-def _adversarial_pairs(device, albedo_only, seed=0):
-    """Binned pairs built by hand for a 200x70 image (its height no
+def _adversarial_pairs(device, variant, seed=0):
+    """Binned pairs of ``variant`` ("albedo", "full", or the single-channel
+    "depth" and "overdraw") built by hand for a 200x70 image (its height no
     multiple of 32): every tile holds tiny splats (the mostly culled case),
     a degenerate pair (zero conic: it covers every pixel) and axis-aligned
     quads whose edge sits on a pixel centre at a cull-block boundary; tile
-    LONG_TILE holds 45 chunks, with tiny splats, then an opaque stack that
-    covers the whole tile from pair 2100 on, then more pairs that the early
-    exit skips."""
+    LONG_TILE holds 45 chunks (several of K4's, K5's and K6's segments),
+    with tiny splats, then an opaque stack that covers the whole tile from
+    pair 2100 on, then more pairs that K3's early exit skips."""
     rng = np.random.default_rng(seed)
     ty, tx = TB.tiles_for(W_ADV, H_ADV)
-    nf = 9 if albedo_only else 18
+    nf = len(TB.VARIANT_FIELDS[variant])
     cols = []
     counts = []
     for t in range(ty * tx):
@@ -158,15 +159,18 @@ def _adversarial_pairs(device, albedo_only, seed=0):
         f[0] = tj * 32 + cx
         f[1] = (H_ADV - ti * 32) - cy
         f[2], f[3], f[4] = ca, cb, cc
-        f[5:8] = rng.uniform(0.05, 1, (3, n))
-        f[8] = alpha
-        if not albedo_only:
+        if variant == "depth":
+            f[5] = rng.uniform(0.1, 10, n)
+        elif nf > 5:
+            f[5:8] = rng.uniform(0.05, 1, (3, n))
+            f[8] = alpha
+        if nf > 9:
             f[9:] = rng.uniform(-1, 1, (9, n))
         cols.append(f)
         counts.append(n)
     fields = np.concatenate(cols, 1)
     p = -(-fields.shape[1] // 128) * 128 + 128
-    full = np.zeros((16 if albedo_only else 24, p), np.float32)
+    full = np.zeros((TB.padded_rows(variant), p), np.float32)
     full[:nf, :fields.shape[1]] = fields
     starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     return (torch.from_numpy(full).to(device),
@@ -179,7 +183,8 @@ def test_kernel_k3_adversarial(cuda, albedo_only):
     cull-block boundaries, a 45-chunk tile whose opaque stack ends it in
     the middle of its list, an image height no multiple of 32) against its
     plain version: within 1e-3, and the same pairs walked, tile for tile."""
-    fields, starts, ty, tx = _adversarial_pairs(cuda, albedo_only)
+    fields, starts, ty, tx = _adversarial_pairs(
+        cuda, "albedo" if albedo_only else "full")
     walked = torch.empty(ty * tx, dtype=torch.int32, device=cuda)
     out = kernels.composite_forward(fields, starts, height=H_ADV, ty=ty,
                                     tx=tx, albedo_only=albedo_only,
@@ -199,7 +204,8 @@ def test_kernel_k4_adversarial(cuda, albedo_only):
     rows and rows past the last pair zero, the same bits on 8 more runs;
     segment boundaries fall inside the 45-chunk tile; the state pass's rows
     against its plain version."""
-    fields, starts, ty, tx = _adversarial_pairs(cuda, albedo_only)
+    fields, starts, ty, tx = _adversarial_pairs(
+        cuda, "albedo" if albedo_only else "full")
     kw = dict(height=H_ADV, ty=ty, tx=tx, albedo_only=albedo_only)
     out = kernels.composite_forward(fields, starts, **kw)
     ct = torch.from_numpy(np.random.default_rng(1).normal(
@@ -227,24 +233,94 @@ def test_kernel_k4_adversarial(cuda, albedo_only):
 
 @pytest.mark.parametrize("cut", [4, 126])
 def test_composite_wrappers_reject_unpadded_pairs(cuda, cut):
-    """K3 and K4 stage whole chunks of 128 pairs in 16-byte copies: a pair
+    """K3-K6 stage whole chunks of 128 pairs in 16-byte copies: a pair
     axis that is not a multiple of 128 (of 4, or not even that) raises
     ValueError in every wrapper, and nothing is launched."""
-    fields, starts, ty, tx = _adversarial_pairs(cuda, True)
+    fields, starts, ty, tx = _adversarial_pairs(cuda, "albedo")
     narrow = fields[:, :fields.shape[1] - cut].contiguous()
     kw = dict(height=H_ADV, ty=ty, tx=tx, albedo_only=True)
     ct = torch.zeros((16, ty * 32, tx * 32), device=cuda)
     res = torch.zeros((2, ty * 32, tx * 32), device=cuda)
+    single, starts1, _, _ = _adversarial_pairs(cuda, "depth")
+    narrow1 = single[:, :single.shape[1] - cut].contiguous()
+    kw1 = dict(height=H_ADV, ty=ty, tx=tx)
     before = dict(kernels.launches)
     for call in (lambda: kernels.composite_forward(narrow, starts, **kw),
                  lambda: kernels.composite_bwd_states(narrow, starts, ct,
                                                       **kw),
                  lambda: kernels.composite_backward(narrow, starts, ct, res,
-                                                    **kw)):
+                                                    **kw),
+                 lambda: kernels.min_depth(narrow1, starts1, **kw1),
+                 lambda: kernels.overdraw(narrow1, starts1, **kw1)):
         with pytest.raises(ValueError, match="multiple of 128"):
             call()
     assert kernels.launches == before
     torch.cuda.synchronize()
+
+
+def test_single_channel_wrappers_reject_cpu_and_misaligned(cuda):
+    """K5 and K6 launch only on CUDA tensors whose field rows start on a
+    16-byte boundary: a CPU tensor or a view one float in raises
+    ValueError, and nothing is launched."""
+    fields, starts, ty, tx = _adversarial_pairs(cuda, "depth")
+    kw = dict(height=H_ADV, ty=ty, tx=tx)
+    shifted = torch.zeros(fields.numel() + 1, device=cuda)[1:].view(
+        fields.shape)
+    shifted.copy_(fields)
+    before = dict(kernels.launches)
+    for fn in (kernels.min_depth, kernels.overdraw):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(fields.cpu(), starts, **kw)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            fn(shifted, starts, **kw)
+    assert kernels.launches == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["min_depth", "overdraw"])
+def test_kernel_k5_k6_adversarial(cuda, name):
+    """K5 and K6 on hand-built pairs (tiny splats, a degenerate pair, quad
+    edges on cull-block boundaries, a 45-chunk tile that spans several
+    segments, an image height no multiple of 32) against their plain
+    versions: the same bits, and the same bits on 9 more runs."""
+    fields, starts, ty, tx = _adversarial_pairs(
+        cuda, "depth" if name == "min_depth" else "overdraw")
+    seg = kernels.single_channel_seg_chunks()
+    assert int(TCOMP._tile_ranges(starts)[3][LONG_TILE]) > 2 * seg
+    kw = dict(height=H_ADV, ty=ty, tx=tx)
+    got = getattr(kernels, name)(fields, starts, **kw)
+    plain = TCOMP.min_depth_plain if name == "min_depth" else \
+        TCOMP.overdraw_plain
+    ref = plain(fields, starts, H_ADV, ty, tx)
+    assert torch.equal(got, ref)
+    assert torch.equal(ref, plain(fields, starts, H_ADV, ty, tx,
+                                  seg_chunks=seg))
+    if name == "overdraw":
+        assert float(got.max()) >= 100
+    for _ in range(9):
+        assert torch.equal(got, getattr(kernels, name)(fields, starts, **kw))
+
+
+def test_kernel_k5_nan_depth(cuda):
+    """A NaN depth comes out NaN at the pixels its pair covers, on every
+    run, and every other pixel keeps its bits."""
+    fields, starts, ty, tx = _adversarial_pairs(cuda, "depth")
+    kw = dict(height=H_ADV, ty=ty, tx=tx)
+    n = int(starts[LONG_TILE + 1] - starts[LONG_TILE])
+    # three small splats: in the first, a middle and the last chunk
+    rows = int(starts[LONG_TILE]) + torch.tensor([5, 3000, n - 3])
+    bad = fields.clone()
+    bad[5, rows.to(cuda)] = float("nan")
+    got = kernels.min_depth(bad, starts, **kw)
+    ref = TCOMP.min_depth_plain(bad, starts, H_ADV, ty, tx)
+    nan = torch.isnan(got)
+    assert bool(nan.any()) and torch.equal(nan, torch.isnan(ref))
+    assert torch.equal(got[~nan], ref[~nan])
+    assert torch.equal(got[~nan], kernels.min_depth(fields, starts,
+                                                    **kw)[~nan])
+    for _ in range(9):
+        again = kernels.min_depth(bad, starts, **kw)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 @pytest.mark.parametrize("albedo_only", [False, True])
