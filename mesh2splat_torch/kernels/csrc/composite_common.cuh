@@ -288,15 +288,15 @@ __device__ __forceinline__ const float* row_chain(const float (&pp)[CHUNK][PR],
 //
 // Rows [0, NF) of the field-major (F_pad, p) buffer, columns
 // [base, base + CHUNK), into dst[NF][CHUNK], in 16-byte pieces spread over
-// the block's NT threads, as one commit group. base is a multiple of CHUNK
-// and p of CHUNK (render/binning.py pads the pair axis), so every piece is
+// the block's threads, as one commit group. base is a multiple of CHUNK and
+// p of CHUNK (render/binning.py pads the pair axis), so every piece is
 // 16-byte aligned once the buffer is (the wrapper checks).
-template <int NF, int NT = THREADS>
+template <int NF>
 __device__ __forceinline__ void stage_fields(float (&dst)[NF][CHUNK],
                                              const float* fields, int64_t p,
                                              int64_t base) {
   constexpr int PIECES = NF * CHUNK / 4;
-  for (int i = threadIdx.x; i < PIECES; i += NT) {
+  for (int i = threadIdx.x; i < PIECES; i += THREADS) {
     const int f = i / (CHUNK / 4);
     const int col = (i - f * (CHUNK / 4)) * 4;
     const uint32_t s =

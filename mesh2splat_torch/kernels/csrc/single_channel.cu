@@ -29,12 +29,13 @@
 // pairs, so a tile's chunks (from its 128-aligned start, as the Pallas
 // kernels walk them) are cut into segments of SEG_CHUNKS chunks, one block
 // each, and no segment needs state from another: the cubemap's fullest
-// tile runs as 104 blocks among some 10,000. An empty tile has no segment and
-// costs only the wrapper's fill of the output (3e38 or 0). Within a block
-// each warp owns WARP_BLOCKS of the tile's 32 cull blocks of 8x4 pixels
-// (composite_common.cuh), one pixel of each per lane. Each chunk is staged
-// once, pair-major (stage_pair; K5's depth stands where K3 keeps colour),
-// while the next chunk's field rows arrive by cp.async; the warp ballots
+// tile runs as 104 blocks among some 10,000. An empty tile has no segment
+// and costs only the wrapper's fill of the output (3e38 or 0). Within a
+// block of 256 threads each warp owns 4 of the tile's 32 cull blocks of
+// 8x4 pixels (composite_common.cuh), one pixel of each per lane. Each
+// chunk is staged once, pair-major (stage_pair; K5's depth stands where K3
+// keeps colour), while the next chunk's field rows arrive by cp.async,
+// and occupancy hides the rest: 8 blocks fill an SM. The warp ballots
 // the chunk's live pairs against each of its cull blocks (may_cover(),
 // exact: a dropped pair covers no pixel of the block) and walks only the
 // pairs of those lists, evaluating a pair only at the blocks whose list
@@ -49,42 +50,28 @@
 // 0xffc00000, which wins both.
 #include "composite_common.cuh"
 
-// Chunks per segment, cull blocks per warp (4: 256 threads, each warp a
-// 16x8 pixel block of 2x2 cull blocks; 1: 1024 threads, a cull block per
-// warp) and the blocks per SM the registers must allow (the
-// __launch_bounds__ minimum; by default a full SM of 2048 threads, which
-// holds the walk to 32 registers). Defined at build time only to measure
-// other values (ab_single_channel.py); the library reports SC_SEG through
-// m2s_single_channel_seg_chunks.
-#ifndef SC_SEG
-#define SC_SEG 2
-#endif
-#ifndef SC_WARP_BLOCKS
-#define SC_WARP_BLOCKS 4
-#endif
-#ifndef SC_MIN_BLOCKS
-#define SC_MIN_BLOCKS (2048 / (1024 / SC_WARP_BLOCKS))
-#endif
-
 namespace {
 
 using namespace m2s_comp;
 
-constexpr int SEG_CHUNKS = SC_SEG;
-constexpr int WARP_BLOCKS = SC_WARP_BLOCKS;
-static_assert(WARP_BLOCKS == 4 || WARP_BLOCKS == 1,
-              "a warp owns 4 cull blocks or 1");
-constexpr int NT = NPX / WARP_BLOCKS;  // threads: a pixel of each block
+// chunks per segment, one block each (m2s_single_channel_seg_chunks)
+constexpr int SEG_CHUNKS = 2;
+// Blocks per SM the registers must allow: 8 of THREADS fill an SM, which
+// holds the walk to 32 registers. ptxas then spills ~150 bytes, and that
+// still measured faster than 40 or 64 registers at fewer resident warps
+// (PERF.md, PR 5).
+constexpr int MIN_BLOCKS = 8;
 
 constexpr float NO_DEPTH = 3e38f;  // composite.py MIN_DEPTH_NONE
 constexpr unsigned NAN_BITS = 0xffc00000u;
 
-// Cull block q of warp w.
+// Cull block q of warp w: each warp owns the 16x8 pixels of 2x2 cull
+// blocks, its lanes one pixel of each.
 __device__ __forceinline__ int block_x(int w, int q) {
-  return WARP_BLOCKS == 4 ? 2 * (w & 1) + (q & 1) : (w & 3);
+  return 2 * (w & 1) + (q & 1);
 }
 __device__ __forceinline__ int block_y(int w, int q) {
-  return WARP_BLOCKS == 4 ? 2 * (w >> 1) + (q >> 1) : (w >> 2);
+  return 2 * (w >> 1) + (q >> 1);
 }
 
 // A staged pair's plane coefficients.
@@ -112,7 +99,7 @@ __device__ __forceinline__ void combine_min(float* o, float v) {
 }
 
 template <bool MIN_DEPTH>
-__global__ void __launch_bounds__(NT, SC_MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 single_channel_kernel(const float* __restrict__ fields, int64_t p,
                       const int32_t* __restrict__ tile_starts,
                       const int32_t* __restrict__ seg_first, int n_tiles,
@@ -137,14 +124,14 @@ single_channel_kernel(const float* __restrict__ fields, int64_t p,
   const int n_rows = (int)(sg.c1 - sg.c0) * CHUNK;
   const int lo0 = (int)sg.start - first;
   const int hi0 = (int)sg.end - first;
-  stage_fields<NF, NT>(raw, fields, p, first);
+  stage_fields(raw, fields, p, first);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // per pixel: K5 the running minimum, K6 the count (exact in f32)
-  float xs[WARP_BLOCKS], ys[WARP_BLOCKS], acc[WARP_BLOCKS];
+  float xs[PPT], ys[PPT], acc[PPT];
 #pragma unroll
-  for (int q = 0; q < WARP_BLOCKS; ++q) {
+  for (int q = 0; q < PPT; ++q) {
     const int pix = cull_pixel(block_x(warp, q), block_y(warp, q), lane);
     xs[q] = (float)(pix % TILE) + 0.5f;
     ys[q] = (float)(pix / TILE) + 0.5f;
@@ -164,15 +151,15 @@ single_channel_kernel(const float* __restrict__ fields, int64_t p,
     __syncthreads();
     // the next chunk's rows land while this one is walked
     if (base + CHUNK < n_rows)
-      stage_fields<NF, NT>(raw, fields, p, first + base + CHUNK);
+      stage_fields(raw, fields, p, first + base + CHUNK);
 
     for (int r0 = 0; r0 < CHUNK; r0 += 32) {
       const int r = r0 + lane;
       const bool live = r >= lo && r < hi;
-      unsigned m[WARP_BLOCKS];
+      unsigned m[PPT];
       unsigned list = 0;
 #pragma unroll
-      for (int q = 0; q < WARP_BLOCKS; ++q) {
+      for (int q = 0; q < PPT; ++q) {
         m[q] = __ballot_sync(
             FULL_MASK, live && may_cover(uv, r, cull_xc(block_x(warp, q)),
                                          cull_yc(block_y(warp, q))));
@@ -185,7 +172,7 @@ single_channel_kernel(const float* __restrict__ fields, int64_t p,
         float d = 0.0f;
         if constexpr (MIN_DEPTH) d = pp[r0 + rr][P_COL_R];
 #pragma unroll
-        for (int q = 0; q < WARP_BLOCKS; ++q) {
+        for (int q = 0; q < PPT; ++q) {
           float g;
           if (!((m[q] >> rr) & 1u) || !covers(pl, xs[q], ys[q], g) ||
               !(g > 0.0f))
@@ -208,7 +195,7 @@ single_channel_kernel(const float* __restrict__ fields, int64_t p,
 
   const int64_t w_img = (int64_t)tx * TILE;
 #pragma unroll
-  for (int q = 0; q < WARP_BLOCKS; ++q) {
+  for (int q = 0; q < PPT; ++q) {
     const int pix = cull_pixel(block_x(warp, q), block_y(warp, q), lane);
     float* o = out + ((int64_t)ti * TILE + pix / TILE) * w_img +
                (int64_t)tj * TILE + pix % TILE;
@@ -232,10 +219,10 @@ extern "C" int m2s_single_channel(const float* fields, int64_t p,
   if (blocks > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     if (min_depth) {
-      single_channel_kernel<true><<<blocks, NT, 0, s>>>(
+      single_channel_kernel<true><<<blocks, THREADS, 0, s>>>(
           fields, p, tile_starts, seg_first, ty * tx, tx, (float)height, out);
     } else {
-      single_channel_kernel<false><<<blocks, NT, 0, s>>>(
+      single_channel_kernel<false><<<blocks, THREADS, 0, s>>>(
           fields, p, tile_starts, seg_first, ty * tx, tx, (float)height, out);
     }
   }
@@ -245,12 +232,12 @@ extern "C" int m2s_single_channel(const float* fields, int64_t p,
 // The chunks of one segment.
 extern "C" int m2s_single_channel_seg_chunks() { return SEG_CHUNKS; }
 
-// Resident blocks of NT threads per SM of K5 (min_depth = 1) or K6, from
-// the occupancy calculator.
+// Resident blocks of THREADS threads per SM of K5 (min_depth = 1) or K6,
+// from the occupancy calculator.
 extern "C" int m2s_single_channel_occupancy(int min_depth, int* blocks) {
   return (int)(min_depth
                    ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         blocks, single_channel_kernel<true>, NT, 0)
+                         blocks, single_channel_kernel<true>, THREADS, 0)
                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         blocks, single_channel_kernel<false>, NT, 0));
+                         blocks, single_channel_kernel<false>, THREADS, 0));
 }
