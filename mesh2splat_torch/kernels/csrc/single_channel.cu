@@ -59,7 +59,7 @@ constexpr int SEG_CHUNKS = 2;
 // Blocks per SM the registers must allow: 8 of THREADS fill an SM, which
 // holds the walk to 32 registers. ptxas then spills ~150 bytes, and that
 // still measured faster than 40 or 64 registers at fewer resident warps
-// (PERF.md, PR 5).
+// (PERF.md).
 constexpr int MIN_BLOCKS = 8;
 
 constexpr float NO_DEPTH = 3e38f;  // composite.py MIN_DEPTH_NONE
