@@ -22,10 +22,11 @@ without a card:
      compare; the kernels' launch counters are zeroed before each path and
      read after it, and no render may drop a class-C pair;
   4. each kernel against its plain PyTorch version on the same CUDA tensors,
-     at the shapes of phase 3 (K3 also the pairs each tile walked; K4's
-     state pass its per-segment states; K4, K5 and K6 a second run
-     bit-equal to the first), with the tile histograms of the inputs of
-     K3-K6;
+     at the shapes of phase 3 (K1 also the local it writes into its meta
+     table, against the torch slot fill too; K3 also the pairs each tile
+     walked; K4's state pass its per-segment states; K1, K4, K5 and K6 a
+     second run bit-equal to the first), with the tile histograms of the
+     inputs of K3-K6;
   5. the whole slice on the card against the same code on the CPU, small:
      conversion and render, one fit_splats loss and gradient, one
      fit_textures gradient, the tiled cubemap at 128^2, the FINAL frame
@@ -154,16 +155,19 @@ class Record:
     """Records what a module-level function returns while a path runs (the
     function still runs; nothing else changes): each binning's
     dropped_pairs (every render bins once, a cubemap once), the shadow
-    factor of a frame."""
+    factor of a frame; with ``with_args``, (positional arguments, result)
+    pairs (the conversion's segment fills)."""
 
-    def __init__(self, module, name, pick=lambda out: out):
+    def __init__(self, module, name, pick=lambda out: out, with_args=False):
         self.module, self.name, self.pick = module, name, pick
+        self.with_args = with_args
         self.real = getattr(module, name)
         self.got = []
 
     def _call(self, *args, **kw):
         out = self.real(*args, **kw)
-        self.got.append(self.pick(out))
+        got = self.pick(out)
+        self.got.append((args, got) if self.with_args else got)
         return out
 
     def __enter__(self):
@@ -195,13 +199,24 @@ def host_ms(fn, n, warm=1):
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def event_ms(fn, n, warm=2):
+QUEUE_CYCLES = 40_000_000    # ~20 ms of the card's clock
+
+
+def event_ms(fn, n, warm=2, queued=True):
+    """Device ms per call of fn, by CUDA events around n calls. ``queued``
+    first holds the stream in a sleep of QUEUE_CYCLES while the host
+    enqueues the calls, so that a kernel shorter than its own launch (K1)
+    is timed on the card and not at the host's launch rate (the sleep lies
+    before the start event). queued=False times the calls as the host
+    issues them."""
     import torch
 
     for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(n):
         fn()
@@ -736,6 +751,7 @@ def main():
     from mesh2splat_torch import kernels
     from mesh2splat_torch.kernels import build
     from mesh2splat_torch.ops import fragment as TF
+    from mesh2splat_torch.ops import segments as TSEG
     from mesh2splat_torch.ops.projection import project_splats
     from mesh2splat_torch.io import ply
     from mesh2splat_torch.render import binning as TB
@@ -761,8 +777,9 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with Capture(kernels) as cap:
-        sp, stats = scene.convert(resolution=512, layers=6,
-                                  return_stats=True)
+        with Record(TSEG, "fill_value", with_args=True) as fills:
+            sp, stats = scene.convert(resolution=512, layers=6,
+                                      return_stats=True)
         count = int(sp.count())
         with tempfile.TemporaryDirectory() as tmp:
             for fmt in (0, 1, 2):
@@ -828,13 +845,39 @@ def main():
 
     # ---- 4. kernels against their plain versions on the card ----------
     errs = {}
+    # K1 writes each slot's local into row 2 of its meta table: kernel and
+    # plain run on clones with row 2 zeroed; the torch fill's local comes
+    # from the arguments of the main conversion's slot fill (the only fill
+    # over the slot capacity: the textured path fills no local)
     (rec, meta), kw1 = cap.seen["texel_rows"]
-    rows_k = kernels.texel_rows(rec, meta, **kw1)
-    rows_p = TF.texel_rows_plain(rec, meta, **kw1)
+    n_slots = meta.shape[1]
+    slot_fills = [a for a, _ in fills.got if a[2] == n_slots]
+    check(len(slot_fills) == 1, f"the conversion ran {len(slot_fills)} "
+          f"slot fills, expected 1 (the packed key; K1 computes local)")
+    fill_local = TSEG.expand_monotone(*slot_fills[0][:3])[0].float()
+
+    def k1_run(fn):
+        m = meta.clone()
+        m[2] = 0
+        return fn(rec, m, **kw1), m
+
+    (rows_k, meta_k), (rows_p, meta_p) = (k1_run(kernels.texel_rows),
+                                          k1_run(TF.texel_rows_plain))
+    rows_k2, meta_k2 = k1_run(kernels.texel_rows)
     errs["texel_rows"] = int((rows_k - rows_p).abs().max())
-    log(f"K1 texel_rows: {rec.shape[1]} records, {meta.shape[1]} slots, "
-        f"{int((rows_k != rows_p).sum())} rows differ")
-    check(errs["texel_rows"] == 0, "K1 differs from its plain version")
+    local_ok = (torch.equal(meta_k, meta_p) and torch.equal(meta_k[2],
+                                                            fill_local)
+                and torch.equal(meta[2], fill_local))
+    again_ok = torch.equal(rows_k2, rows_k) and torch.equal(meta_k2, meta_k)
+    starts = int((meta_k[2] == 0).sum())
+    log(f"K1 texel_rows: {rec.shape[1]} records, {n_slots} slots, "
+        f"{int((rows_k != rows_p).sum())} rows differ; local equal to the "
+        f"plain version's and the torch fill's (and to the main path's): "
+        f"{local_ok}; a second run bit-equal: {again_ok}; {starts} segments, "
+        f"the longest {int(meta_k[2].max()) + 1} slots")
+    check(errs["texel_rows"] == 0 and local_ok and again_ok,
+          "K1 differs from its plain version")
+    del meta_p, meta_k2, rows_k2
 
     (rec, taps, meta), kw2 = cap.seen["fragment_apply"]
     out_k = kernels.fragment_apply(rec, taps, meta, **kw2)
@@ -1041,11 +1084,12 @@ def main():
             resident_warps_per_sm=warps,
             library_ms=None))
 
+    # K1 reads meta rows 0, 1, 3 and writes the rows and local (row 2)
     entry("texel_rows", "mesh2splat_torch/kernels/csrc/texel_rows.cu",
           "mesh2splat_tpu/ops/fragment.py:597",
           event_ms(lambda: kernels.texel_rows(rec, meta, **kw1), 20),
           event_ms(lambda: TF.texel_rows_plain(rec, meta, **kw1), 20),
-          24 * n_tri * 4 + 4 * cap_slots * 4 + cap_slots * 4,
+          24 * n_tri * 4 + 3 * cap_slots * 4 + 2 * cap_slots * 4,
           cap_slots * 150, errs["texel_rows"])
     entry("fragment_apply", "mesh2splat_torch/kernels/csrc/fragment.cu",
           "mesh2splat_tpu/ops/fragment.py:674",

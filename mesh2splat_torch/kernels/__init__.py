@@ -144,10 +144,15 @@ def _raise_on(err: int, what: str):
 
 def texel_rows(records, metaT, *, res, geom, k, n_rows):
     """K1: (cap,) int32 packed atlas rows. records (REC_W, T_pad) f32,
-    metaT (4, cap) f32 [tri, row_local, local, live]."""
+    metaT (4, cap) f32 [tri, row_local, local, live], its (tri, row_local)
+    never decreasing along the slots. Writes each slot's local (its index
+    within its (tri, row_local) segment) into row 2 of metaT, which it does
+    not read."""
     _check(records, "records", torch.float32, 2, rows=REC_W)
     _check(metaT, "metaT", torch.float32, 2, records.device, rows=4)
     cap = metaT.shape[1]
+    if cap >= 1 << 30:
+        raise ValueError(f"metaT: {cap} slots, K1 takes fewer than 2^30")
     out = torch.empty((cap,), dtype=torch.int32, device=records.device)
     err = _fn("texel_rows")(
         records.data_ptr(), records.shape[1], metaT.data_ptr(), cap, res,

@@ -222,9 +222,12 @@ def _row_widths(mesh, ouv, res, row_cap, max_texels_per_tri):
     return geo, row_tri, row_local, width, n_rows.sum()
 
 
-def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None):
+def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None,
+                  local_in_k1=False):
     """Stages 1-3: per-triangle attributes, scanline row expansion and
-    row -> texel-slot expansion."""
+    row -> texel-slot expansion. With ``local_in_k1`` (K1 will run: the
+    material has a texture stack or atlas) ``local`` is left zero: K1
+    computes it and writes it into metaT's row 2."""
     res = config.resolution
     cap = config.capacity
     attrs = _attrs(mesh, bbox_min, bbox_max, ortho_uv)
@@ -236,9 +239,13 @@ def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None):
     offsets, total = segments.alloc_slots(width, cap)
     if t * 4096 < 2**31:
         # one monotone packed channel (tri * 4096 + row_local) through cummax
-        local, _, packed = segments.expand_monotone(
-            offsets, width, cap, value=row_tri * 4096 + row_local
-        )
+        value = row_tri * 4096 + row_local
+        if local_in_k1:
+            packed = segments.fill_value(offsets, width, cap, value)
+            local = torch.zeros((cap,), dtype=torch.int32, device=ouv.device)
+        else:
+            local, _, packed = segments.expand_monotone(offsets, width, cap,
+                                                        value=value)
         packed = torch.clamp(packed, min=0)
         tri_id_safe = packed >> 12
         s_row_local = packed & 4095
@@ -366,6 +373,7 @@ def _finish_convert(mesh, config, stack, mids, factors, has_base,
         atlasT, geom = fragment.build_pair_atlas(stack, k,
                                                  mips=config.use_mips)
     if atlas is not None or stack is not None:
+        # K1 also writes each slot's local into metaT's row 2, for K2
         rows_idx = fragment.texel_rows(
             records, metaT, res=res, geom=geom, k=k, n_rows=atlasT.shape[1],
         )
@@ -388,7 +396,8 @@ def _finish_convert(mesh, config, stack, mids, factors, has_base,
 def _convert_core(mesh, bbox_min, bbox_max, config, stack, mids, factors,
                   has_base, has_normal, has_mr, ortho_uv=None,
                   return_stats=False, atlas=None):
-    ex = _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv)
+    ex = _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv,
+                       local_in_k1=stack is not None or atlas is not None)
     splats = _finish_convert(mesh, config, stack, mids, factors, has_base,
                              has_normal, has_mr, ex, atlas)
     if not return_stats:

@@ -344,8 +344,26 @@ def _gather_rec(records, metaT, rows=None):
     return rec[:, metaT[0].long()]
 
 
+def slot_local(metaT):
+    """Each slot's index within its texel-row segment, (cap,) f32 (exact
+    below 2^24): a segment starts at slot 0 and wherever the slot's
+    (tri, row_local) differs from the previous slot's, the rule of the JAX
+    package's in-kernel ``_local_scan``. Slot allocation is triangle-ordered
+    and the slots past ``total`` repeat the last key, so this equals the
+    forward fill of each row producer's first slot (``segments``)."""
+    tri = metaT[0].to(torch.int32)
+    row = metaT[1].to(torch.int32)
+    slot = torch.arange(tri.shape[0], dtype=torch.int32, device=tri.device)
+    new = slot == 0
+    new[1:] |= (tri[1:] != tri[:-1]) | (row[1:] != row[:-1])
+    start = torch.cummax(torch.where(new, slot, 0), 0).values
+    return (slot - start).to(torch.float32)
+
+
 def texel_rows_plain(records, metaT, *, res, geom, k, n_rows):
-    """Plain version of K1 on any device."""
+    """Plain version of K1 on any device. Writes ``slot_local`` into row 2
+    of ``metaT``, as the kernel does."""
+    metaT[2] = slot_local(metaT)
     idx = _index_math(_gather_rec(records, metaT, GEO_W), metaT,
                       res=res, geom=geom, k=k)
     return torch.clamp(idx, 0, n_rows - 1)
@@ -354,8 +372,11 @@ def texel_rows_plain(records, metaT, *, res, geom, k, n_rows):
 def texel_rows(records, metaT, *, res, geom, k, n_rows):
     """K1: per-slot packed atlas row indices, (cap,) int32 in [0, n_rows).
     records: (REC_W, T_pad) f32; metaT: (4, cap) f32 [tri, row_local,
-    local, live]. A CUDA tensor launches the kernel, a CPU tensor takes the
-    plain version."""
+    local, live] whose rows 0 and 1 never decrease together along the slots
+    (lexicographically), as the conversion allocates them. Also computes
+    each slot's ``local`` (``slot_local``) and writes it into row 2 of
+    ``metaT``, where K2 reads it: row 2 is not read. A CUDA tensor launches
+    the kernel, a CPU tensor takes the plain version."""
     kw = dict(res=res, geom=geom, k=k, n_rows=n_rows)
     if records.is_cuda:
         return kernels.texel_rows(records, metaT, **kw)

@@ -12,10 +12,12 @@ import torch
 from mesh2splat_torch import kernels, state
 from mesh2splat_torch.ops import conversion as TC
 from mesh2splat_torch.ops import fragment as TF
+from mesh2splat_torch.ops import segments as TS
 from mesh2splat_torch.render import binning as TB
 from mesh2splat_torch.render import composite as TCOMP
 from mesh2splat_torch.types import make_camera
-from torch_parity import sphere_mesh
+from torch_parity import (SLOT_CASES, SLOT_GEOM, adversarial_slots,
+                          slot_records, sphere_mesh)
 
 pytestmark = pytest.mark.gpu
 
@@ -70,6 +72,64 @@ def test_kernels_k1_k2_match_plain(cuda, atlas):
     assert torch.equal(out[19], ref[19])
     live = ref[19] > 0
     assert float((out[:19, live] - ref[:19, live]).abs().max()) <= 2e-5
+
+
+def _k1_both(cuda, meta, res=64, seed=4):
+    """K1 and its plain version on clones of the same CUDA meta table:
+    (rows, metaT after the kernel, plain rows, metaT after the plain)."""
+    rec = torch.from_numpy(slot_records(int(meta[0].max()) + 1, res,
+                                        seed=seed)).to(cuda)
+    kw = dict(res=res, geom=SLOT_GEOM, k=4, n_rows=1 << 20)
+    m_k = torch.from_numpy(meta).to(cuda)
+    m_p = m_k.clone()
+    rows = kernels.texel_rows(rec, m_k, **kw)
+    plain = TF.texel_rows_plain(rec, m_p, **kw)
+    return rows, m_k, plain, m_p, lambda m: kernels.texel_rows(rec, m, **kw)
+
+
+# 10,007 and 3,001 slots are no multiple of 4 (scalar loads); 12,288 is a
+# whole number of blocks; 3,000,000 puts a segment of a million slots and
+# a two-million-slot tail behind the blocks that search it
+@pytest.mark.parametrize("case,cap", [
+    (case, cap) for case in SLOT_CASES for cap in (3001, 10007, 12288)]
+    + [("single", 3_000_000)])
+def test_kernel_k1_adversarial(cuda, case, cap):
+    """K1 on hand-built slot tables (blocks that start inside a segment,
+    segments over several blocks, triangle spans far beyond a block's,
+    zero-width producers, slots past the total) with row 2 zero: rows and
+    local equal to the plain version's, the rows on a second run bit-equal,
+    and local equal to the slot fill's (segments.expand_monotone)."""
+    offsets, widths, meta = adversarial_slots(case, cap, seed=cap)
+    rows, m_k, plain, m_p, again = _k1_both(cuda, meta)
+    assert torch.equal(rows, plain)
+    assert torch.equal(m_k, m_p)
+    fill, _ = TS.expand_monotone(torch.from_numpy(offsets).to(cuda),
+                                 torch.from_numpy(widths).to(cuda), cap)
+    assert torch.equal(m_k[2], fill.float())
+    m2 = torch.from_numpy(meta).to(cuda)
+    assert torch.equal(again(m2), rows) and torch.equal(m2, m_k)
+    torch.cuda.synchronize()
+
+
+def test_texel_rows_wrapper_rejects(cuda):
+    """K1 takes float32 CUDA tensors of 64 record rows and 4 meta rows,
+    contiguous, on one device: anything else raises ValueError and
+    launches nothing."""
+    _, _, meta = adversarial_slots("mixed", 3001, seed=1)
+    rec = torch.from_numpy(slot_records(int(meta[0].max()) + 1, 64)).to(cuda)
+    m = torch.from_numpy(meta).to(cuda)
+    kw = dict(res=64, geom=SLOT_GEOM, k=4, n_rows=1 << 20)
+    before = dict(kernels.launches)
+    for r, mt, what in ((rec.cpu(), m, "CUDA tensor"),
+                        (rec, m.cpu(), "CUDA tensor"),
+                        (rec, m.double(), "dtype"),
+                        (rec, m[:3].contiguous(), "shape"),
+                        (rec[:60].contiguous(), m, "shape"),
+                        (rec, m.t().contiguous().t(), "contiguous")):
+        with pytest.raises(ValueError, match=what):
+            kernels.texel_rows(r, mt, **kw)
+    assert kernels.launches == before
+    torch.cuda.synchronize()
 
 
 def _random_splats(n=3000, seed=0):

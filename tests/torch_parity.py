@@ -84,3 +84,86 @@ def torch_mesh_material(mesh: dict, material: dict, device="cpu"):
     from mesh2splat_torch import state
 
     return state.mesh(mesh, device), state.material(material, device)
+
+
+def slot_meta(widths, tris, rows, cap):
+    """The slot table a conversion hands K1, from row producers in
+    allocation order: producer p (triangle tris[p], texel row rows[p]; the
+    keys strictly increase) owns widths[p] >= 0 slots from its exclusive
+    cumsum offset, clipped at cap; slots past the total repeat the last key
+    and are not live. Returns (offsets, widths, metaT): int32 (P,) arrays
+    and a (4, cap) f32 array [tri, row_local, 0, live]."""
+    widths = np.asarray(widths, np.int32)
+    offsets = (np.cumsum(widths) - widths).astype(np.int32)
+    owner = np.repeat(np.arange(len(widths)), widths)[:cap]
+    total = len(owner)
+    owner = np.concatenate([owner, np.full(cap - total, owner[-1])])
+    meta = np.zeros((4, cap), np.float32)
+    meta[0] = np.asarray(tris)[owner]
+    meta[1] = np.asarray(rows)[owner]
+    meta[3] = np.arange(cap) < total
+    return offsets, widths, meta
+
+
+SLOT_CASES = ("mixed", "long", "sparse_tris", "single", "clipped",
+              "block_edges", "unit")
+
+
+def adversarial_slots(case, cap, seed=0):
+    """slot_meta for one case of SLOT_CASES: short segments with zero-width
+    producers, segments longer than 2048 slots (the JAX kernel's block) and
+    than a CUDA block, triangle ids that skip many triangles, a single
+    producer (most slots past the total), a total clipped at cap, segment
+    edges on block edges, and one slot a segment."""
+    rng = np.random.default_rng(seed)
+    n = cap  # more producers than the capacity needs
+    if case == "mixed":
+        widths = rng.integers(0, 13, n) * (rng.random(n) > 0.2)
+    elif case == "long":
+        widths = np.where(rng.random(n) < 0.1, rng.integers(2049, 6000, n),
+                          rng.integers(0, 40, n))
+    elif case == "sparse_tris":
+        widths = rng.integers(0, 30, n)
+    elif case == "single":
+        widths = np.array([cap // 3])
+    elif case == "clipped":
+        widths = rng.integers(100, 3000, n)
+    elif case == "block_edges":
+        widths = rng.choice([1, 31, 32, 33, 1023, 1024, 1025, 2048], n)
+    elif case == "unit":
+        widths = np.ones(n, np.int64)
+    else:
+        raise ValueError(case)
+    widths = widths.astype(np.int64)
+    keep = np.cumsum(widths) - widths < cap + 1
+    widths = widths[keep]
+    p = len(widths)
+    per_tri = rng.integers(1, 6, p)
+    tri_step = rng.integers(0, 2, p)
+    if case == "sparse_tris":
+        tri_step *= rng.integers(50, 500, p)
+    # a new triangle when the step is taken, else the next row of this one
+    new_tri = (tri_step > 0) | (np.arange(p) % per_tri == 0)
+    tris = np.cumsum(np.where(new_tri, np.maximum(tri_step, 1), 0))
+    start = np.maximum.accumulate(np.where(new_tri, np.arange(p), 0))
+    rows = np.arange(p) - start
+    return slot_meta(widths, tris - tris[0], rows, cap)
+
+
+SLOT_GEOM = ((0, 64, 64, 4096), (1024, 32, 32, 1024))  # (off, h, w, hw_pad)
+
+
+def slot_records(n_tri, res, seed=0):
+    """A (64, T_pad) f32 record table for K1 whose triangles cover the
+    whole ortho-UV square (texel box 0..res-1 in x and y), so that most
+    slots of slot_meta are covered; random texture uv, mip level 0 or 1 of
+    SLOT_GEOM, material 0."""
+    rng = np.random.default_rng(seed)
+    t_pad = -(-(n_tri + 128) // 128) * 128
+    rec = np.zeros((64, t_pad), np.float32)
+    jit = rng.uniform(-0.01, 0.01, (6, n_tri))
+    rec[0:6, :n_tri] = np.array([0, 0, 2, 0, 0, 2])[:, None] + jit
+    rec[8, :n_tri] = res                     # tw (tx0 = ty0 = 0)
+    rec[9:15, :n_tri] = rng.uniform(-0.5, 1.5, (6, n_tri))
+    rec[16, :n_tri] = rng.integers(0, 2, n_tri)
+    return rec
