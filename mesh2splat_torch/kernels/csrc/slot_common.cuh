@@ -83,33 +83,10 @@ __device__ __forceinline__ float lerp3(const SlotUV& s, float a, float b,
   return fmaf(c, s.wc, fmaf(b, s.wb, a * s.wa));
 }
 
-// What a slot's math needs that depends only on its row (its triangle and
-// row_local), so that the slots of one row can share it (K1). Each field is
-// the expression slot_uv computed in place, rounded the same way.
-struct RowGeom {
-  float pv;              // the row's texel-centre v
-  int32_t c0;            // its first covered column
-  float au, v0u, v0v, v1u, v1v;
-  float v2v, nb;         // pv - av, -(v1u * v2v)
-  float safe, sg;        // the barycentric divisor, sign(den)
-  float p0u[3];          // per edge (a->b, b->c, c->a): p0u,
-  float du[3];           //   p1u - p0u,
-  float dp[3];           //   pv - p0v,
-  float dv[3];           //   p1v - p0v
-  int32_t flags;         // bit i: edge i is top-left; bit 3: |den| > 1e-20
-  float ua, ub, uc, va, vb, vc;
-};
-
-// A row's texel-centre v and first covered column (_row_span_cols).
-struct RowStart {
-  float pv;
-  int32_t c0;
-};
-
-// rec(f) reads record row f of the row's triangle.
+// rec(f) reads record row f of this slot's triangle.
 template <typename Rec>
-__device__ __forceinline__ RowStart row_start(const Rec& rec, float row_local,
-                                              int res) {
+__device__ __forceinline__ SlotUV slot_uv(const Rec& rec, float row_local,
+                                          float local, float live, int res) {
   const float resf = (float)res;
   int32_t tx0 = f2i(rec(R_TX0));
   int32_t tw = f2i(rec(R_TW));
@@ -120,96 +97,45 @@ __device__ __forceinline__ RowStart row_start(const Rec& rec, float row_local,
   float bu = rec(R_BU), bv = rec(R_BV);
   float cu = rec(R_CU), cv = rec(R_CV);
 
+  // _row_span_cols: first covered column of the row
   float lo0 = edge_lo(au, av, bu, bv, y_s);
   float lo1 = edge_lo(bu, bv, cu, cv, y_s);
   float lo2 = edge_lo(cu, cv, au, av, y_s);
   float xlo = fminf(fminf(lo0, lo1), lo2);
   int32_t c0 = to_index(ceilf(fmaf(xlo, resf, -0.5f) - 0.01f));
-  return RowStart{y_s, min(max(c0, tx0), tx0 + tw - 1)};
-}
+  c0 = min(max(c0, tx0), tx0 + tw - 1);
 
-// The rest of the row's terms, from its start.
-template <typename Rec>
-__device__ __forceinline__ RowGeom row_geom_at(const Rec& rec, RowStart r) {
-  const float y_s = r.pv;
-  float au = rec(R_AU), av = rec(R_AV);
-  float bu = rec(R_BU), bv = rec(R_BV);
-  float cu = rec(R_CU), cv = rec(R_CV);
+  int32_t ti = c0 + f2i(local);
+  float pu = ((float)ti + 0.5f) / resf;
+  float pv = y_s;
 
-  RowGeom g;
-  g.c0 = r.c0;
-  g.pv = y_s;
-  g.au = au;
-  g.v0u = bu - au;
-  g.v0v = bv - av;
-  g.v1u = cu - au;
-  g.v1v = cv - av;
-  g.v2v = y_s - av;
-  g.nb = -(g.v1u * g.v2v);
-  float den = fmaf(g.v0u, g.v1v, -(g.v1u * g.v0v));
-  g.safe = fabsf(den) < 1e-20f ? 1.0f : den;
-  g.sg = sign_f(den);
-
-  // the top-left fill rule's per-edge terms
-  const float pu_[4] = {au, bu, cu, au}, pv_[4] = {av, bv, cv, av};
-  g.flags = (fabsf(den) > 1e-20f) ? 8 : 0;
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    g.p0u[e] = pu_[e];
-    g.du[e] = pu_[e + 1] - pu_[e];
-    g.dp[e] = y_s - pv_[e];
-    g.dv[e] = pv_[e + 1] - pv_[e];
-    float du = g.du[e] * g.sg;
-    float dv = g.dv[e] * g.sg;
-    if ((dv < 0.0f) || ((dv == 0.0f) && (du < 0.0f))) g.flags |= 1 << e;
-  }
-  g.ua = rec(R_UA);
-  g.ub = rec(R_UB);
-  g.uc = rec(R_UC);
-  g.va = rec(R_VA);
-  g.vb = rec(R_VB);
-  g.vc = rec(R_VC);
-  return g;
-}
-
-template <typename Rec>
-__device__ __forceinline__ RowGeom row_geom(const Rec& rec, float row_local,
-                                            int res) {
-  return row_geom_at(rec, row_start(rec, row_local, res));
-}
-
-// The slot `local` columns into its row: texel centre, barycentrics,
-// coverage and texture uv.
-__device__ __forceinline__ SlotUV slot_at(const RowGeom& g, float local,
-                                          float live, int res) {
-  int32_t ti = g.c0 + f2i(local);
-  float pu = ((float)ti + 0.5f) / (float)res;
-  float v2u = pu - g.au;
+  float v0u = bu - au, v0v = bv - av;
+  float v1u = cu - au, v1v = cv - av;
+  float v2u = pu - au, v2v = pv - av;
+  float den = fmaf(v0u, v1v, -(v1u * v0v));
+  float safe = fabsf(den) < 1e-20f ? 1.0f : den;
   SlotUV s;
-  s.wb = fmaf(v2u, g.v1v, g.nb) / g.safe;
-  s.wc = fmaf(g.v0u, g.v2v, -(v2u * g.v0v)) / g.safe;
+  s.wb = fmaf(v2u, v1v, -(v1u * v2v)) / safe;
+  s.wc = fmaf(v0u, v2v, -(v2u * v0v)) / safe;
   s.wa = 1.0f - s.wb - s.wc;
 
   // coverage with the top-left fill rule
-  bool inside = (g.flags & 8) != 0;
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    float wq = fmaf(g.du[e], g.dp[e], -(g.dv[e] * (pu - g.p0u[e]))) * g.sg;
-    inside = inside && ((wq > 0.0f) || ((wq == 0.0f) && (g.flags >> e & 1)));
-  }
+  float sg = sign_f(den);
+  auto accept = [&](float p0u, float p0v, float p1u, float p1v) {
+    float wq = fmaf(p1u - p0u, pv - p0v, -((p1v - p0v) * (pu - p0u))) * sg;
+    float du = (p1u - p0u) * sg;
+    float dv = (p1v - p0v) * sg;
+    bool tl = (dv < 0.0f) || ((dv == 0.0f) && (du < 0.0f));
+    return (wq > 0.0f) || ((wq == 0.0f) && tl);
+  };
+  bool inside = accept(au, av, bu, bv) && accept(bu, bv, cu, cv) &&
+                accept(cu, cv, au, av) && (fabsf(den) > 1e-20f);
   s.valid = (live > 0.0f) && inside;
 
   // the texture uv fuses the other product than lerp3 (fragment.py lerp_uv)
-  s.uu = fmaf(g.uc, s.wc, fmaf(g.ua, s.wa, g.ub * s.wb));
-  s.vv = fmaf(g.vc, s.wc, fmaf(g.va, s.wa, g.vb * s.wb));
+  s.uu = fmaf(rec(R_UC), s.wc, fmaf(rec(R_UA), s.wa, rec(R_UB) * s.wb));
+  s.vv = fmaf(rec(R_VC), s.wc, fmaf(rec(R_VA), s.wa, rec(R_VB) * s.wb));
   return s;
-}
-
-// rec(f) reads record row f of this slot's triangle.
-template <typename Rec>
-__device__ __forceinline__ SlotUV slot_uv(const Rec& rec, float row_local,
-                                          float local, float live, int res) {
-  return slot_at(row_geom(rec, row_local, res), local, live, res);
 }
 
 struct TapIndex {

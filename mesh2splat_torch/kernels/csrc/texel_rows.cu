@@ -8,57 +8,37 @@
 // (_local_scan). Plain version: mesh2splat_torch/ops/fragment.py::
 // texel_rows_plain (slot_local, then _index_math).
 //
-// Bound on the H100: bytes. Per slot it reads 3 meta floats (tri, row_local,
-// live) and writes the row and `local`, with some hundred flops per slot in
-// between and 17 record floats per triangle.
+// Bound on the H100: bytes by the roofline's count (per slot 3 meta floats
+// read, the row and `local` written: 20 B), but the index math runs into
+// the integer and issue limits first: ~450 instructions a slot, 7 IEEE
+// divisions and the address arithmetic of the record loads among them
+// (PERF.md, PR 6). Without the math the kernel runs near the bytes bound.
 //
 // `local` without a carry. The TPU walks the slots in order and carries the
 // last segment start across grid steps in SMEM; blocks here run in no
 // order. Slot allocation is triangle-ordered, so the key (tri, row_local)
 // never decreases along the slots (the slots past `total` repeat the last
-// key): the start of the segment of a block's first slot is the first slot
-// with its key, which warp 0 finds by a 32-way search over meta rows 0-1
-// (first the 32 slots before the block, then the whole prefix). Inside the
-// block a max-scan of "a segment starts here" gives every other slot's
-// start (per thread over its slots, warp shuffles, one shared array of
-// warp totals). No block order, no atomics, no state between launches.
+// key): the start of the segment of a warp's first slot is the first slot
+// with its key, which the warp finds by a 32-way search over meta rows 0-1
+// (first the 32 slots before it, then the whole prefix). Inside the warp a
+// max-scan of "a segment starts here" gives every other slot's start (per
+// thread over its slots, then shuffles). Each warp works alone: no block
+// order, no barrier, no atomics, no state between launches.
 //
-// The rest: each thread takes SPT consecutive slots with vector loads and
-// stores; the record rows are read straight from the (REC_W, T_pad) table by
-// triangle id. Neighbouring slots mostly share a triangle, so those reads
-// hit in L1/L2. The K1_* switches below build the variants that
-// ab_texel_rows.py times against each other (the defaults are the design
-// above).
+// Each thread takes SPT consecutive slots with vector loads and stores; the
+// record rows are read straight from the (REC_W, T_pad) table by triangle
+// id. Neighbouring slots mostly share a triangle, so those reads hit in
+// L1/L2. The atlas row divides by k with a shift when k is a power of two.
 #include "slot_common.cuh"
-
-#ifndef K1_SPT
-#define K1_SPT 4
-#endif
-// 1: the slots of a warp share their rows' math through a shared table
-#ifndef K1_ROWS
-#define K1_ROWS 0
-#endif
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int SPT = K1_SPT;
+constexpr int SPT = 4;                     // slots a thread
+constexpr int WARP_SLOTS = 32 * SPT;
 constexpr int BLOCK_SLOTS = THREADS * SPT;
-constexpr int VEC_W = SPT < 4 ? SPT : 4;   // floats per vector access
 constexpr unsigned FULL = 0xffffffffu;
 
-#ifdef K1_RECROWS
-// records given row-major, (T_pad, REC_W)
-struct RecCol {
-  const float* __restrict__ records;
-  int64_t t_pad;
-  int64_t tri;
-  __device__ float operator()(int f) const {
-    return __ldg(records + tri * 64 + f);
-  }
-};
-#else
 struct RecCol {
   const float* __restrict__ records;
   int64_t t_pad;
@@ -67,47 +47,6 @@ struct RecCol {
     return __ldg(records + (int64_t)f * t_pad + tri);
   }
 };
-#endif
-
-// K1_STAGE > 0 (per-slot math only): each warp stages K1_STAGE triangles
-// of record rows 0..R_LOD from its first slot's triangle on in shared
-// memory; triangles past the window are read from the table.
-#ifndef K1_STAGE
-#define K1_STAGE 0
-#endif
-#if K1_STAGE
-constexpr int STAGE_ROWS = R_LOD + 1;
-struct StagedCol {
-  const float* __restrict__ records;
-  int64_t t_pad;
-  int64_t tri;
-  uint32_t rel;  // tri minus the window's first triangle
-  const float (*win)[K1_STAGE];
-  __device__ float operator()(int f) const {
-    return rel < (uint32_t)K1_STAGE ? win[f][rel]
-                                    : __ldg(records + (int64_t)f * t_pad + tri);
-  }
-};
-#endif
-
-// One row of a warp's table: its RowGeom and its triangle's mip level.
-struct alignas(16) RowEntry {
-  RowGeom g;
-  TapLevel l;
-};
-constexpr int ROW_PASS = 32;  // rows a warp computes at once, one a lane
-static_assert(!K1_ROWS || SPT <= 4,
-              "the row keys must fit static shared memory");
-
-// The packed atlas row of a slot at (uu, vv): floor(texel / k), by a shift
-// where k is a power of two (kshift >= 0).
-__device__ __forceinline__ int32_t atlas_row(const SlotUV& su,
-                                             const TapLevel& l, int k,
-                                             int kshift) {
-  float fu, fv;
-  int32_t texel = tap_texel(su.uu, su.vv, l, &fu, &fv);
-  return l.off + (kshift >= 0 ? texel >> kshift : floor_div(texel, k));
-}
 
 __device__ __forceinline__ bool key_below(int32_t t, int32_t r, int32_t t0,
                                           int32_t r0) {
@@ -120,22 +59,12 @@ __device__ __forceinline__ void load_slots(const float* __restrict__ row,
                                            int32_t base, int32_t cap,
                                            float (&v)[SPT]) {
   if (VEC && base + SPT <= cap) {
-    if constexpr (VEC_W == 4) {
-#pragma unroll
-      for (int q = 0; q < SPT / 4; ++q) {
-        float4 x = __ldg(reinterpret_cast<const float4*>(row + base) + q);
-        v[4 * q] = x.x;
-        v[4 * q + 1] = x.y;
-        v[4 * q + 2] = x.z;
-        v[4 * q + 3] = x.w;
-      }
-      return;
-    } else if constexpr (VEC_W == 2) {
-      float2 x = __ldg(reinterpret_cast<const float2*>(row + base));
-      v[0] = x.x;
-      v[1] = x.y;
-      return;
-    }
+    float4 x = __ldg(reinterpret_cast<const float4*>(row + base));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+    return;
   }
 #pragma unroll
   for (int s = 0; s < SPT; ++s)
@@ -148,43 +77,31 @@ __device__ __forceinline__ void put4(float* p, const float* v) {
 __device__ __forceinline__ void put4(int32_t* p, const int32_t* v) {
   *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
 }
-__device__ __forceinline__ void put2(float* p, const float* v) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-}
-__device__ __forceinline__ void put2(int32_t* p, const int32_t* v) {
-  *reinterpret_cast<int2*>(p) = make_int2(v[0], v[1]);
-}
 
 // SPT consecutive values of one row from slot `base` (none past cap).
 template <bool VEC, typename T>
 __device__ __forceinline__ void store_slots(T* __restrict__ row, int32_t base,
                                             int32_t cap, const T (&v)[SPT]) {
   if (VEC && base + SPT <= cap) {
-    if constexpr (VEC_W == 4) {
-#pragma unroll
-      for (int q = 0; q < SPT / 4; ++q) put4(row + base + 4 * q, v + 4 * q);
-      return;
-    } else if constexpr (VEC_W == 2) {
-      put2(row + base, v);
-      return;
-    }
+    put4(row + base, v);
+    return;
   }
 #pragma unroll
   for (int s = 0; s < SPT; ++s)
     if (base + s < cap) row[base + s] = v[s];
 }
 
-// The first slot in [0, b0] whose key is not below (t0, r0), the key of
-// slot b0: with keys that never decrease, the start of b0's segment. Called
+// The first slot in [0, j0] whose key is not below (t0, r0), the key of
+// slot j0: with keys that never decrease, the start of j0's segment. Called
 // by a whole warp; every lane returns the result. Each round probes 32
 // slots and keeps the interval between the last probe below the key and
-// the next: first the 32 slots before b0, then strides over the prefix.
+// the next: first the 32 slots before j0, then strides over the prefix.
 __device__ int32_t segment_first(const float* __restrict__ tri_row,
                                  const float* __restrict__ row_row,
-                                 int32_t b0, int32_t t0, int32_t r0) {
+                                 int32_t j0, int32_t t0, int32_t r0) {
   const int lane = threadIdx.x & 31;
-  int32_t hi = b0;  // the answer lies in [lo, hi]
-  int32_t lo = max(b0 - 32, 0);
+  int32_t hi = j0;  // the answer lies in [lo, hi]
+  int32_t lo = max(j0 - 32, 0);
   bool near = true;
   while (lo < hi) {
     const int32_t step = near ? 1 : (hi - lo + 31) / 32;
@@ -209,29 +126,18 @@ __device__ int32_t segment_first(const float* __restrict__ tri_row,
   return hi;
 }
 
-#ifndef K1_MINB
-#define K1_MINB 1
-#endif
-
-// Lanes of the warp compute rows [p, p + ROW_PASS) of its table.
-__device__ __forceinline__ void row_pass(RowEntry (&table)[ROW_PASS],
-                                         const int2* keys, int p, int n,
-                                         const float* __restrict__ records,
-                                         int64_t t_pad, int res,
-                                         const M2SGeom& geom) {
-  const int lane = threadIdx.x & 31;
-  if (p + lane < n) {
-    const int2 key = keys[p + lane];
-    int64_t t = key.x;
-    t = t < 0 ? 0 : (t >= t_pad ? t_pad - 1 : t);
-    RecCol rec{records, t_pad, t};
-    table[lane].g = row_geom(rec, __int_as_float(key.y), res);
-    table[lane].l = tap_level(rec(R_MID), rec(R_LOD), geom);
-  }
+// The packed atlas row of a covered slot: floor(texel / k), by a shift
+// where k is a power of two (kshift >= 0).
+__device__ __forceinline__ int32_t atlas_row(const SlotUV& su,
+                                             const TapLevel& l, int k,
+                                             int kshift) {
+  float fu, fv;
+  int32_t texel = tap_texel(su.uu, su.vv, l, &fu, &fv);
+  return l.off + (kshift >= 0 ? texel >> kshift : floor_div(texel, k));
 }
 
 template <bool VEC>
-__global__ void __launch_bounds__(THREADS, K1_MINB)
+__global__ void __launch_bounds__(THREADS)
     texel_rows_kernel(const float* __restrict__ records, int64_t t_pad,
                       float* __restrict__ meta, int32_t cap, int res,
                       M2SGeom geom, int k, int kshift, int n_rows,
@@ -241,9 +147,8 @@ __global__ void __launch_bounds__(THREADS, K1_MINB)
   const float* live_row = meta + 3 * (int64_t)cap;
   float* local_row = meta + 2 * (int64_t)cap;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // the warp's first slot: each warp works alone
-  const int32_t w0 = blockIdx.x * BLOCK_SLOTS + warp * 32 * SPT;
+  // the warp's first slot
+  const int32_t w0 = blockIdx.x * BLOCK_SLOTS + (threadIdx.x >> 5) * WARP_SLOTS;
   const int32_t base = w0 + lane * SPT;
   if (w0 >= cap) return;
 
@@ -252,66 +157,12 @@ __global__ void __launch_bounds__(THREADS, K1_MINB)
   load_slots<VEC>(row_row, base, cap, row);
   load_slots<VEC>(live_row, base, cap, live);
 
-  // the key of the slot before this thread's first, within the warp
+  // the key of the slot before this thread's first
   int32_t pt = __shfl_up_sync(FULL, f2i(tri[SPT - 1]), 1);
   int32_t pr = __shfl_up_sync(FULL, f2i(row[SPT - 1]), 1);
-
-#if K1_ROWS == 2
-  __shared__ RowStart rstart[WARPS][32 * SPT];
-#endif
-#if K1_ROWS
-  // The warp's rows: its first slot's and every later slot whose key
-  // differs from the previous slot's, numbered in slot order. Each is
-  // computed once, by one lane, into a shared table the row's slots read
-  // (ROW_PASS rows at a time).
-#if K1_ROWS == 1
-  __shared__ RowEntry table[WARPS][ROW_PASS];
-#endif
-  __shared__ int2 keys[WARPS][32 * SPT];
-  unsigned starts = 0;
-  {
-    int32_t qt = pt, qr = pr;
-#pragma unroll
-    for (int s = 0; s < SPT; ++s) {
-      const int32_t t = f2i(tri[s]), r = f2i(row[s]);
-      if (base + s < cap && ((lane == 0 && s == 0) || t != qt || r != qr))
-        starts |= 1u << s;
-      qt = t;
-      qr = r;
-    }
-  }
-  const int n_starts = __popc(starts);
-  int first = n_starts;  // inclusive, then exclusive, scan of the counts
-#pragma unroll
-  for (int d = 1; d < 32; d *= 2) {
-    const int y = __shfl_up_sync(FULL, first, d);
-    if (lane >= d) first += y;
-  }
-  const int n_rows_warp = __shfl_sync(FULL, first, 31);
-  first -= n_starts;
-#pragma unroll
-  for (int s = 0; s < SPT; ++s)
-    if (starts >> s & 1)
-      keys[warp][first + __popc(starts & ((1u << s) - 1))] =
-          make_int2(f2i(tri[s]), __float_as_int(row[s]));
-  __syncwarp();
-#if K1_ROWS == 1
-  row_pass(table[warp], keys[warp], 0, n_rows_warp, records, t_pad, res,
-           geom);
-#else
-  for (int q = lane; q < n_rows_warp; q += 32) {
-    const int2 key = keys[warp][q];
-    int64_t t = key.x;
-    t = t < 0 ? 0 : (t >= t_pad ? t_pad - 1 : t);
-    RecCol rec{records, t_pad, t};
-    rstart[warp][q] = row_start(rec, __int_as_float(key.y), res);
-  }
-#endif
-#endif
-
-  if (lane == 0 && base > 0 && base <= cap) {
-    pt = f2i(__ldg(tri_row + base - 1));
-    pr = f2i(__ldg(row_row + base - 1));
+  if (lane == 0 && w0 > 0) {
+    pt = f2i(__ldg(tri_row + w0 - 1));
+    pr = f2i(__ldg(row_row + w0 - 1));
   }
 
   // running segment start over this thread's slots (-1: none yet); lane 0
@@ -350,79 +201,18 @@ __global__ void __launch_bounds__(THREADS, K1_MINB)
 #pragma unroll
   for (int s = 0; s < SPT; ++s) {
     local[s] = (float)(base + s - max(pre, run[s]));
-    rows_out[s] = 0;
-  }
-#if K1_ROWS == 2
-  __syncwarp();
-#pragma unroll
-  for (int s = 0; s < SPT; ++s) {
     int64_t t = f2i(tri[s]);
     t = t < 0 ? 0 : (t >= t_pad ? t_pad - 1 : t);
     RecCol rec{records, t_pad, t};
-    if (base + s < cap) {
-      const int q = first + __popc(starts & ((2u << s) - 1)) - 1;
-      SlotUV su = slot_at(row_geom_at(rec, rstart[warp][q]), local[s],
-                          live[s], res);
-      if (su.valid)
-        rows_out[s] = atlas_row(
-            su, tap_level(rec(R_MID), rec(R_LOD), geom), k, kshift);
-    }
-  }
-#elif K1_ROWS
-  for (int p = 0; p < n_rows_warp; p += ROW_PASS) {
-    if (p > 0) {
-      __syncwarp();
-      row_pass(table[warp], keys[warp], p, n_rows_warp, records, t_pad, res,
-               geom);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int s = 0; s < SPT; ++s) {
-      // the row of slot s: the warp's row starts up to it, minus 1
-      const int q = first + __popc(starts & ((2u << s) - 1)) - 1 - p;
-      if (base + s < cap && q >= 0 && q < ROW_PASS) {
-        const RowEntry& e = table[warp][q];
-        SlotUV su = slot_at(e.g, local[s], live[s], res);
-        if (su.valid) rows_out[s] = atlas_row(su, e.l, k, kshift);
-      }
-    }
-  }
-#elif !defined(K1_NOMATH)
-#if K1_STAGE
-  __shared__ float win[WARPS][STAGE_ROWS][K1_STAGE];
-  const int64_t tw0 = min(max((int64_t)__shfl_sync(FULL, f2i(tri[0]), 0),
-                              (int64_t)0), t_pad - 1);
-  for (int i = lane; i < STAGE_ROWS * K1_STAGE; i += 32) {
-    const int64_t t = tw0 + i % K1_STAGE;
-    win[warp][i / K1_STAGE][i % K1_STAGE] =
-        t < t_pad ? __ldg(records + (int64_t)(i / K1_STAGE) * t_pad + t) : 0.0f;
-  }
-  __syncwarp();
-#endif
-#pragma unroll
-  for (int s = 0; s < SPT; ++s) {
-    int64_t t = f2i(tri[s]);
-    t = t < 0 ? 0 : (t >= t_pad ? t_pad - 1 : t);
-#if K1_STAGE
-    StagedCol rec{records, t_pad, t, (uint32_t)(t - tw0), win[warp]};
-#else
-    RecCol rec{records, t_pad, t};
-#endif
+    int32_t r = 0;
     if (base + s < cap) {
       SlotUV su = slot_uv(rec, row[s], local[s], live[s], res);
       if (su.valid)
-        rows_out[s] = atlas_row(
-            su, tap_level(rec(R_MID), rec(R_LOD), geom), k, kshift);
+        r = atlas_row(su, tap_level(rec(R_MID), rec(R_LOD), geom), k,
+                      kshift);
     }
+    rows_out[s] = min(max(r, 0), n_rows - 1);
   }
-#else
-  // the index math left out: the scan, loads and stores alone
-#pragma unroll
-  for (int s = 0; s < SPT; ++s) rows_out[s] = f2i(tri[s]);
-#endif
-#pragma unroll
-  for (int s = 0; s < SPT; ++s)
-    rows_out[s] = min(max(rows_out[s], 0), n_rows - 1);
   store_slots<VEC>(out, base, cap, rows_out);
   store_slots<VEC>(local_row, base, cap, local);
 }
@@ -437,14 +227,17 @@ extern "C" int m2s_texel_rows(const float* records, int64_t t_pad,
     int kshift = -1;  // log2(k) where k is a power of two
     for (int sh = 0; sh < 31; ++sh)
       if (k == 1 << sh) kshift = sh;
-    const bool vec = cap % VEC_W == 0 && (uintptr_t)meta % 16 == 0 &&
+    // vector access: every meta row and the output start on 16 bytes
+    const bool vec = cap % SPT == 0 && (uintptr_t)meta % 16 == 0 &&
                      (uintptr_t)out % 16 == 0;
     if (vec)
       texel_rows_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-          records, t_pad, meta, (int32_t)cap, res, geom, k, kshift, n_rows, out);
+          records, t_pad, meta, (int32_t)cap, res, geom, k, kshift, n_rows,
+          out);
     else
       texel_rows_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-          records, t_pad, meta, (int32_t)cap, res, geom, k, kshift, n_rows, out);
+          records, t_pad, meta, (int32_t)cap, res, geom, k, kshift, n_rows,
+          out);
   }
   return (int)cudaGetLastError();
 }
