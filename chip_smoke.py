@@ -202,21 +202,18 @@ def host_ms(fn, n, warm=1):
 QUEUE_CYCLES = 40_000_000    # ~20 ms of the card's clock
 
 
-def event_ms(fn, n, warm=2, queued=True):
-    """Device ms per call of fn, by CUDA events around n calls. ``queued``
-    first holds the stream in a sleep of QUEUE_CYCLES while the host
-    enqueues the calls, so that a kernel shorter than its own launch (K1)
-    is timed on the card and not at the host's launch rate (the sleep lies
-    before the start event). queued=False times the calls as the host
-    issues them."""
+def event_ms(fn, n, warm=2):
+    """Device ms per call of fn, by CUDA events around n calls. The stream
+    first sleeps for QUEUE_CYCLES while the host enqueues the calls, so that
+    a kernel shorter than its launch (K1) is timed at the card's pace, not
+    the host's (the sleep lies before the start event)."""
     import torch
 
     for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    if queued:
-        torch.cuda._sleep(QUEUE_CYCLES)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(n):
         fn()
