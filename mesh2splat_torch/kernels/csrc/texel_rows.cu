@@ -9,10 +9,10 @@
 // texel_rows_plain (slot_local, then _index_math).
 //
 // Bound on the H100: bytes by the roofline's count (per slot 3 meta floats
-// read, the row and `local` written: 20 B), but the index math runs into
-// the integer and issue limits first: ~450 instructions a slot, 7 IEEE
-// divisions and the address arithmetic of the record loads among them
-// (PERF.md, PR 6). Without the math the kernel runs near the bytes bound.
+// read, the row and `local` written: 20 B), but the index math reaches the
+// integer and issue limits first: seven IEEE divisions, clamps and the
+// address arithmetic of the record loads (PERF.md section 6). Without the
+// math the kernel runs near the bytes bound.
 //
 // `local` without a carry. The TPU walks the slots in order and carries the
 // last segment start across grid steps in SMEM; blocks here run in no
