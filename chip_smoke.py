@@ -155,19 +155,16 @@ class Record:
     """Records what a module-level function returns while a path runs (the
     function still runs; nothing else changes): each binning's
     dropped_pairs (every render bins once, a cubemap once), the shadow
-    factor of a frame; with ``with_args``, (positional arguments, result)
-    pairs (the conversion's segment fills)."""
+    factor of a frame."""
 
-    def __init__(self, module, name, pick=lambda out: out, with_args=False):
+    def __init__(self, module, name, pick=lambda out: out):
         self.module, self.name, self.pick = module, name, pick
-        self.with_args = with_args
         self.real = getattr(module, name)
         self.got = []
 
     def _call(self, *args, **kw):
         out = self.real(*args, **kw)
-        got = self.pick(out)
-        self.got.append((args, got) if self.with_args else got)
+        self.got.append(self.pick(out))
         return out
 
     def __enter__(self):
@@ -180,6 +177,15 @@ class Record:
     def take(self):
         got, self.got = self.got, []
         return got
+
+
+class Calls(Record):
+    """Records the positional arguments of each call instead (the
+    conversion's segment fills)."""
+
+    def _call(self, *args, **kw):
+        self.got.append(args)
+        return self.real(*args, **kw)
 
 
 def sync():
@@ -774,7 +780,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with Capture(kernels) as cap:
-        with Record(TSEG, "fill_value", with_args=True) as fills:
+        with Calls(TSEG, "fill_value") as fills:
             sp, stats = scene.convert(resolution=512, layers=6,
                                       return_stats=True)
         count = int(sp.count())
@@ -848,7 +854,7 @@ def main():
     # over the slot capacity: the textured path fills no local)
     (rec, meta), kw1 = cap.seen["texel_rows"]
     n_slots = meta.shape[1]
-    slot_fills = [a for a, _ in fills.got if a[2] == n_slots]
+    slot_fills = [a for a in fills.got if a[2] == n_slots]
     check(len(slot_fills) == 1, f"the conversion ran {len(slot_fills)} "
           f"slot fills, expected 1 (the packed key; K1 computes local)")
     fill_local = TSEG.expand_monotone(*slot_fills[0][:3])[0].float()

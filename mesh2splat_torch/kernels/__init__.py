@@ -147,7 +147,10 @@ def texel_rows(records, metaT, *, res, geom, k, n_rows):
     metaT (4, cap) f32 [tri, row_local, local, live], its (tri, row_local)
     never decreasing along the slots. Writes each slot's local (its index
     within its (tri, row_local) segment) into row 2 of metaT, which it does
-    not read."""
+    not read. k (texels an atlas row, fragment.pack_factor) must be a power
+    of two: the kernel divides by it with a shift."""
+    if k < 1 or k & (k - 1):
+        raise ValueError(f"k = {k} is not a power of two")
     _check(records, "records", torch.float32, 2, rows=REC_W)
     _check(metaT, "metaT", torch.float32, 2, records.device, rows=4)
     cap = metaT.shape[1]
@@ -156,7 +159,8 @@ def texel_rows(records, metaT, *, res, geom, k, n_rows):
     out = torch.empty((cap,), dtype=torch.int32, device=records.device)
     err = _fn("texel_rows")(
         records.data_ptr(), records.shape[1], metaT.data_ptr(), cap, res,
-        _geom(geom), k, n_rows, out.data_ptr(), _stream(records.device))
+        _geom(geom), int(k).bit_length() - 1, n_rows, out.data_ptr(),
+        _stream(records.device))
     _raise_on(err, "texel_rows")
     launches["texel_rows"] += 1
     return out

@@ -28,7 +28,8 @@
 // Each thread takes SPT consecutive slots with vector loads and stores; the
 // record rows are read straight from the (REC_W, T_pad) table by triangle
 // id. Neighbouring slots mostly share a triangle, so those reads hit in
-// L1/L2. The atlas row divides by k with a shift when k is a power of two.
+// L1/L2. k (texels an atlas row) is a power of two: the wrapper passes
+// log2(k), and the atlas row divides by k with a shift.
 #include "slot_common.cuh"
 
 namespace {
@@ -126,21 +127,20 @@ __device__ int32_t segment_first(const float* __restrict__ tri_row,
   return hi;
 }
 
-// The packed atlas row of a covered slot: floor(texel / k), by a shift
-// where k is a power of two (kshift >= 0).
+// The packed atlas row of a covered slot: floor(texel / k) with
+// k = 2^kshift (an arithmetic shift floors a negative texel too).
 __device__ __forceinline__ int32_t atlas_row(const SlotUV& su,
-                                             const TapLevel& l, int k,
-                                             int kshift) {
+                                             const TapLevel& l, int kshift) {
   float fu, fv;
   int32_t texel = tap_texel(su.uu, su.vv, l, &fu, &fv);
-  return l.off + (kshift >= 0 ? texel >> kshift : floor_div(texel, k));
+  return l.off + (texel >> kshift);
 }
 
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
     texel_rows_kernel(const float* __restrict__ records, int64_t t_pad,
                       float* __restrict__ meta, int32_t cap, int res,
-                      M2SGeom geom, int k, int kshift, int n_rows,
+                      M2SGeom geom, int kshift, int n_rows,
                       int32_t* __restrict__ out) {
   const float* tri_row = meta;
   const float* row_row = meta + cap;
@@ -208,8 +208,7 @@ __global__ void __launch_bounds__(THREADS)
     if (base + s < cap) {
       SlotUV su = slot_uv(rec, row[s], local[s], live[s], res);
       if (su.valid)
-        r = atlas_row(su, tap_level(rec(R_MID), rec(R_LOD), geom), k,
-                      kshift);
+        r = atlas_row(su, tap_level(rec(R_MID), rec(R_LOD), geom), kshift);
     }
     rows_out[s] = min(max(r, 0), n_rows - 1);
   }
@@ -221,22 +220,20 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" int m2s_texel_rows(const float* records, int64_t t_pad,
                               float* meta, int64_t cap, int res, M2SGeom geom,
-                              int k, int n_rows, int32_t* out, void* stream) {
+                              int kshift, int n_rows, int32_t* out,
+                              void* stream) {
   if (cap > 0) {
     const unsigned blocks = (unsigned)((cap + BLOCK_SLOTS - 1) / BLOCK_SLOTS);
-    int kshift = -1;  // log2(k) where k is a power of two
-    for (int sh = 0; sh < 31; ++sh)
-      if (k == 1 << sh) kshift = sh;
     // vector access: every meta row and the output start on 16 bytes
     const bool vec = cap % SPT == 0 && (uintptr_t)meta % 16 == 0 &&
                      (uintptr_t)out % 16 == 0;
     if (vec)
       texel_rows_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-          records, t_pad, meta, (int32_t)cap, res, geom, k, kshift, n_rows,
+          records, t_pad, meta, (int32_t)cap, res, geom, kshift, n_rows,
           out);
     else
       texel_rows_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-          records, t_pad, meta, (int32_t)cap, res, geom, k, kshift, n_rows,
+          records, t_pad, meta, (int32_t)cap, res, geom, kshift, n_rows,
           out);
   }
   return (int)cudaGetLastError();

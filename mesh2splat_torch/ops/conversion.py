@@ -222,12 +222,11 @@ def _row_widths(mesh, ouv, res, row_cap, max_texels_per_tri):
     return geo, row_tri, row_local, width, n_rows.sum()
 
 
-def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None,
-                  local_in_k1=False):
+def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None):
     """Stages 1-3: per-triangle attributes, scanline row expansion and
-    row -> texel-slot expansion. With ``local_in_k1`` (K1 will run: the
-    material has a texture stack or atlas) ``local`` is left zero: K1
-    computes it and writes it into metaT's row 2."""
+    row -> texel-slot expansion. Each slot's ``local`` is not filled here:
+    K1 computes it from the slots' (tri, row_local), or, without K1, the
+    conversion fills it from ``offsets`` and ``width``."""
     res = config.resolution
     cap = config.capacity
     attrs = _attrs(mesh, bbox_min, bbox_max, ortho_uv)
@@ -239,18 +238,13 @@ def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None,
     offsets, total = segments.alloc_slots(width, cap)
     if t * 4096 < 2**31:
         # one monotone packed channel (tri * 4096 + row_local) through cummax
-        value = row_tri * 4096 + row_local
-        if local_in_k1:
-            packed = segments.fill_value(offsets, width, cap, value)
-            local = torch.zeros((cap,), dtype=torch.int32, device=ouv.device)
-        else:
-            local, _, packed = segments.expand_monotone(offsets, width, cap,
-                                                        value=value)
+        packed = segments.fill_value(offsets, width, cap,
+                                     row_tri * 4096 + row_local)
         packed = torch.clamp(packed, min=0)
         tri_id_safe = packed >> 12
         s_row_local = packed & 4095
     else:
-        _, local, _, ex = segments.expand_to_slots(
+        _, _, _, ex = segments.expand_to_slots(
             offsets, width, cap, extra=torch.stack([row_tri, row_local])
         )
         tri_id_safe = torch.clamp(ex[0], min=0)
@@ -258,8 +252,9 @@ def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None,
     in_budget = torch.arange(cap, dtype=torch.int32, device=ouv.device) < total
     return dict(
         attrs=attrs, ouv=ouv, geo=geo, tri_id_safe=tri_id_safe,
-        s_row_local=s_row_local, local=local, in_budget=in_budget,
-        total=total, t=t, row_demand=row_demand, slot_demand=width.sum(),
+        s_row_local=s_row_local, offsets=offsets, width=width,
+        in_budget=in_budget, total=total, t=t, row_demand=row_demand,
+        slot_demand=width.sum(),
     )
 
 
@@ -359,9 +354,9 @@ def _finish_convert(mesh, config, stack, mids, factors, has_base,
     t_pad = -(-(t + 128) // 128) * 128
     records = F.pad(record.T, (0, t_pad - t)).contiguous()  # (REC_W, T_pad)
     metaT = torch.stack([
-        ex["tri_id_safe"], ex["s_row_local"], ex["local"],
-        ex["in_budget"].to(torch.int32),
-    ]).float().contiguous()  # (4, cap)
+        ex["tri_id_safe"], ex["s_row_local"],
+        torch.zeros_like(ex["s_row_local"]), ex["in_budget"].to(torch.int32),
+    ]).float().contiguous()  # (4, cap) [tri, row_local, local, live]
 
     taps_packed = False
     if atlas is not None:
@@ -379,6 +374,9 @@ def _finish_convert(mesh, config, stack, mids, factors, has_base,
         )
         tapsT = atlasT.index_select(1, rows_idx)  # (k*4*10[/2], cap)
     else:
+        # no K1: K2 reads the segment fill's local
+        metaT[2] = segments.expand_monotone(ex["offsets"], ex["width"],
+                                            cap)[0].float()
         geom, k = ((0, 1, 1, 1),), 1
         tapsT = torch.zeros((1, cap), device=dev)
 
@@ -396,8 +394,7 @@ def _finish_convert(mesh, config, stack, mids, factors, has_base,
 def _convert_core(mesh, bbox_min, bbox_max, config, stack, mids, factors,
                   has_base, has_normal, has_mr, ortho_uv=None,
                   return_stats=False, atlas=None):
-    ex = _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv,
-                       local_in_k1=stack is not None or atlas is not None)
+    ex = _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv)
     splats = _finish_convert(mesh, config, stack, mids, factors, has_base,
                              has_normal, has_mr, ex, atlas)
     if not return_stats:

@@ -113,8 +113,8 @@ def test_kernel_k1_adversarial(cuda, case, cap):
 
 def test_texel_rows_wrapper_rejects(cuda):
     """K1 takes float32 CUDA tensors of 64 record rows and 4 meta rows,
-    contiguous, on one device: anything else raises ValueError and
-    launches nothing."""
+    contiguous, on one device, and a power of two k: anything else raises
+    ValueError and launches nothing."""
     _, _, meta = adversarial_slots("mixed", 3001, seed=1)
     rec = torch.from_numpy(slot_records(int(meta[0].max()) + 1, 64)).to(cuda)
     m = torch.from_numpy(meta).to(cuda)
@@ -128,6 +128,9 @@ def test_texel_rows_wrapper_rejects(cuda):
                         (rec, m.t().contiguous().t(), "contiguous")):
         with pytest.raises(ValueError, match=what):
             kernels.texel_rows(r, mt, **kw)
+    for k in (0, 3, 6):
+        with pytest.raises(ValueError, match="power of two"):
+            kernels.texel_rows(rec, m, **{**kw, "k": k})
     assert kernels.launches == before
     torch.cuda.synchronize()
 

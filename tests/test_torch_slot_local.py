@@ -22,6 +22,7 @@ from mesh2splat_tpu.ops import conversion as JC
 from mesh2splat_tpu.ops import fragment as JF
 from mesh2splat_tpu.ops import segments as JS
 
+from mesh2splat_torch import kernels
 from mesh2splat_torch.ops import conversion as TC
 from mesh2splat_torch.ops import fragment as TF
 from mesh2splat_torch.ops import segments as TS
@@ -160,3 +161,19 @@ def test_textured_conversion_runs_one_slot_fill(textured, monkeypatch):
     assert len(slot_fills) == (1 if textured else 2)
     assert len(row_fills) == 2   # the row expansion, unchanged
     assert len(calls) == len(slot_fills) + len(row_fills)
+
+
+@pytest.mark.parametrize("k", [0, 3, 6, 12])
+def test_k1_wrapper_rejects_k_not_power_of_two(k):
+    """K1 divides by k with a shift: its wrapper refuses any other k before
+    it looks at the tensors or launches anything (pack_factor gives powers
+    of two only)."""
+    _, _, meta = adversarial_slots("mixed", 3001, seed=1)
+    rec = torch.from_numpy(slot_records(int(meta[0].max()) + 1, 64))
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="power of two"):
+        kernels.texel_rows(rec, torch.from_numpy(meta), res=64,
+                           geom=SLOT_GEOM, k=k, n_rows=1 << 20)
+    assert kernels.launches == before
+    assert all(TF.pack_factor(n) & (TF.pack_factor(n) - 1) == 0
+               for n in (1, 4096, 1 << 20, 3 << 21, 1 << 24))
