@@ -20,7 +20,16 @@ without a card:
      shadow cubemap, the 1920x1080 FINAL frame with shadows, the OVERDRAW
      frame, the frame with the mesh depth prepass and the split-screen
      compare; the kernels' launch counters are zeroed before each path and
-     read after it, and no render may drop a class-C pair;
+     read after it, and no render may drop a class-C pair; then the CLI
+     and the one-rank NCCL paths: the sphere written as a GLB (its maps as
+     PNGs) -> cli.main convert (512, 6; zero drops, the count of
+     Scene.from_glb's conversion) -> render at 1920x1080 FINAL with
+     shadows, OVERDRAW and the split screen -> batch over two GLBs, each
+     with the counters zeroed before and read after; over a one-rank NCCL
+     group convert_sharded (equal to convert), rasterize_sharded at
+     1920x1088 (equal to rasterize_tiled) and fit_splats(devices_mesh=)
+     (its history and splats equal to the undistributed fit's, both with
+     deterministic algorithms); the C++ codec must have built;
   4. each kernel against its plain PyTorch version on the same CUDA tensors,
      at the shapes of phase 3 (K1 also the local it writes into its meta
      table, against the torch slot fill too; K3 also the pairs each tile
@@ -35,14 +44,17 @@ without a card:
      (and the naive walk's figure, the bound the first kernels were held
      to), K3-K6's time on their fullest tile alone, each kernel's
      registers, spills, shared memory and resident warps, the training
-     step's time and the render paths' times.
+     step's time, the render paths' times, the CLI commands' times and
+     the PLY export through the C++ codec against the numpy writers.
 It ends with a JSON line of kernel numbers, the card's name and power limit,
 and {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -65,6 +77,9 @@ MAIN_KERNELS = ("texel_rows", "fragment_apply", "composite_full",
                 "composite_albedo")
 BENCH_LIGHT, BENCH_FAR, SHADOW_PX = [0.5, 1.5, 2.0], 10.0, 1024  # bench.py
 RENDER_CALLS = 5
+CLI_RES = 512                 # the CLI's conversion resolution (phase 3d)
+BAND_H = 1088                 # rasterize_sharded's height: 1080 is no
+                              # multiple of the 32-row tiles
 
 
 def log(msg):
@@ -518,7 +533,8 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
     times.append(f"1080p albedo forward {fwd_ms:.2f} ms, forward+backward "
                  f"{fb_ms:.2f} ms, bwd/fwd {(fb_ms - fwd_ms) / fwd_ms:.2f}, "
                  f"fwd+bwd / fwd {fb_ms / fwd_ms:.2f}")
-    return {"paths": paths, "capture": cap, "times": times}
+    return {"paths": paths, "capture": cap, "times": times,
+            "fit": (start, cams, targets, fit_cfg, hist)}
 
 
 def render_paths(torch, kernels, scene, sp, img_albedo, img_final, dev):
@@ -632,6 +648,238 @@ def render_paths(torch, kernels, scene, sp, img_albedo, img_final, dev):
                  f"{t_cm:.2f} ms; {W_PX}x{H_PX} FINAL with shadows "
                  f"{t_sh:.2f} ms; {W_PX}x{H_PX} OVERDRAW {t_od:.2f} ms")
     return {"paths": paths, "capture": cap, "times": times}
+
+
+def write_sphere_glb(prim, path):
+    """bench.py's sphere as a GLB through the port's write_glb_multi: a
+    vertex soup with its three maps as PNGs (8 bits a channel, so its
+    splats are not phase 3's)."""
+    from PIL import Image
+
+    from mesh2splat_torch.io.gltf import write_glb_multi
+
+    def png(a):
+        buf = io.BytesIO()
+        Image.fromarray(np.round(a * 255).astype(np.uint8)).save(
+            buf, format="PNG")
+        return buf.getvalue()
+
+    v = prim.tri_pos.reshape(-1, 3)
+    write_glb_multi(path, [dict(
+        positions=v, indices=np.arange(len(v), dtype=np.uint32).reshape(-1, 3),
+        normals=prim.tri_normal.reshape(-1, 3),
+        uvs=prim.tri_uv.reshape(-1, 2),
+        tangents=prim.tri_tangent.reshape(-1, 4),
+        base_color_png=png(prim.base_color_tex),
+        normal_png=png(prim.normal_tex),
+        metallic_roughness_png=png(prim.metallic_roughness_tex))])
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms over the block (ops without a
+    deterministic version warn; the warnings are yielded)."""
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            yield warned
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+class NullSink:
+    """A file that keeps nothing: the PLY writers' time without the disk."""
+
+    nbytes = 0
+
+    def write(self, data):
+        self.nbytes = len(data)
+
+
+def cli_paths(torch, kernels, scene, sp, prim, fit, proj_kw, dev):
+    """Phase 3d: the CLI in-process on bench.py's sphere written as a GLB,
+    then the one-rank NCCL paths, each with the launch counters zeroed
+    before it and read after it; no binning may drop a class-C pair.
+    Returns their counts and the time lines for phase 6."""
+    import torch.distributed as dist
+
+    from mesh2splat_torch import cli
+    from mesh2splat_torch.io import native, ply
+    from mesh2splat_torch.ops import conversion as TC
+    from mesh2splat_torch.ops.projection import project_splats
+    from mesh2splat_torch.parallel import sharding
+    from mesh2splat_torch.render import binning as TB
+    from mesh2splat_torch.render.tiled import rasterize_tiled
+    from mesh2splat_torch.scene import Scene
+    from mesh2splat_torch.train import fit as TFIT
+    from mesh2splat_torch.types import make_camera
+
+    check(native.available(), "the C++ host codec did not build or load")
+    paths, times = {}, []
+    conv = ["--resolution", str(CLI_RES), "--layers", "6"]
+    view = ["--width", str(W_PX), "--height", str(H_PX), "--eye",
+            ",".join(map(str, EYE))]
+
+    def run(name, fn, expect, bins):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        paths[name] = dict(kernels.launches)
+        for k, n in expect.items():
+            check(paths[name][k] == n, f"{name}: kernel {k} launched "
+                  f"{paths[name][k]} times, expected {n}")
+        dropped = [int(d) for d in drops.take()]
+        check(len(dropped) == bins and not any(dropped),
+              f"{name}: dropped pairs per binning {dropped}, expected "
+              f"{bins} binnings with none dropped")
+        log(f"{name}: {wall:.1f} ms, launches {paths[name]}, {bins} "
+            "binnings with no dropped pairs")
+        return out
+
+    def cli_run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        log(buf.getvalue().strip())
+        return buf.getvalue()
+
+    k12 = {"texel_rows": 1, "fragment_apply": 1}
+    with tempfile.TemporaryDirectory() as tmp, \
+            Record(TB, "bin_pairs", lambda b: b.dropped_pairs) as drops:
+        glb = os.path.join(tmp, "sphere.glb")
+        write_sphere_glb(prim, glb)
+        ref = Scene.from_glb(glb).convert(resolution=CLI_RES, layers=6)
+        ref_count = int(ref.count())
+        out_ply = os.path.join(tmp, "sphere.ply")
+        said = run("cli_convert", lambda: cli_run(
+            ["convert", glb, out_ply, *conv]), k12, bins=0)
+        n_ply = ply.read_ply(out_ply)[0]["pos"].shape[0]
+        log(f"cli convert: {n_ply} splats in the PLY, Scene.from_glb's "
+            f"conversion {ref_count}")
+        check("dropped 0," in said and n_ply == ref_count > 1_000_000,
+              "the CLI's conversion dropped splats or differs from "
+              "Scene.from_glb's")
+        png = os.path.join(tmp, "frame.png")
+        run("cli_final_shadows", lambda: cli_run(
+            ["render", glb, png, "--mode", "final", "--shadows", *conv,
+             *view]), {**k12, "min_depth": 1, "composite_full": 1}, bins=2)
+        run("cli_overdraw", lambda: cli_run(
+            ["render", glb, png, "--mode", "overdraw", *conv, *view]),
+            {**k12, "overdraw": 1}, bins=1)
+        run("cli_split", lambda: cli_run(
+            ["render", glb, png, "--split", "0.5", *conv, *view]),
+            {**k12, "composite_full": 1}, bins=1)
+        batch_in = os.path.join(tmp, "batch")
+        os.makedirs(batch_in)
+        for name in ("a.glb", "b.glb"):
+            os.link(glb, os.path.join(batch_in, name))
+        said = run("cli_batch", lambda: cli_run(
+            ["batch", batch_in, os.path.join(tmp, "batch_out"), *conv]),
+            {"texel_rows": 2, "fragment_apply": 2}, bins=0)
+        check("batch done: 2 converted, 0 failed" in said, "CLI batch")
+
+        # the one-rank NCCL group
+        start, cams, targets, fit_cfg, hist = fit
+        sharding.init_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            mesh = sharding.make_mesh()
+            geom, mat, pr = scene.primitives[0]
+            lo, hi = (geom.tri_pos.new_tensor(b) for b in pr.bbox())
+            cfg = TC.calibrate(geom, lo, hi, scene.last_config)
+            sharded = run("convert_sharded", lambda: sharding.convert_sharded(
+                geom, mat, lo, hi, cfg, mesh), k12, bins=0)
+            single = TC.convert(geom, mat, lo, hi, cfg)
+            same = all(torch.equal(getattr(sharded, f.name),
+                                   getattr(single, f.name))
+                       for f in dataclasses.fields(single))
+            log(f"convert_sharded over one rank: {int(sharded.count())} "
+                f"splats, bit-equal to convert: {same}")
+            check(same, "convert_sharded over one rank differs from convert")
+
+            h_band = BAND_H
+            cam = make_camera(EYE, [0, 0, 0], [0, 1, 0], np.pi / 3, W_PX,
+                              h_band, device=dev)
+            proj = project_splats(sp, cam, **proj_kw)
+            cap = TB.calibrate_overflow(proj, W_PX, h_band)
+            band = run("rasterize_sharded", lambda: sharding.rasterize_sharded(
+                proj, W_PX, h_band, mesh, pair_capacity=cap,
+                albedo_only=True), {"composite_albedo": 1}, bins=1)
+            whole = rasterize_tiled(proj, W_PX, h_band, pair_capacity=cap,
+                                    albedo_only=True)["albedo"]
+            drops.take()
+            log(f"rasterize_sharded {W_PX}x{h_band} over one rank: band "
+                f"{tuple(band.shape)}, bit-equal to rasterize_tiled: "
+                f"{torch.equal(band, whole)}")
+            check(tuple(band.shape) == (h_band, W_PX, 4)
+                  and torch.equal(band, whole),
+                  "rasterize_sharded over one rank differs from "
+                  "rasterize_tiled")
+
+            # both fits with deterministic algorithms: the class-C
+            # gather's backward (index_add_) adds by atomics in any order
+            # otherwise, and its last bits may differ from run to run
+            steps = {"composite_albedo": 2 * FIT_STEPS,
+                     "composite_bwd_albedo": 2 * FIT_STEPS,
+                     "composite_bwd_state_albedo": 2 * FIT_STEPS}
+            with deterministic() as warned:
+                plain_sp, plain = run(
+                    "fit_splats_deterministic", lambda: TFIT.fit_splats(
+                        start, cams, targets, fit_cfg), steps,
+                    bins=2 * FIT_STEPS)
+                dp_sp, hist_dp = run(
+                    "fit_splats_nccl", lambda: TFIT.fit_splats(
+                        start, cams, targets, fit_cfg, devices_mesh=mesh),
+                    steps, bins=2 * FIT_STEPS)
+            same = hist_dp == plain and all(
+                torch.equal(getattr(dp_sp, f.name), getattr(plain_sp, f.name))
+                for f in dataclasses.fields(plain_sp))
+            log(f"fit_splats(devices_mesh=) over one NCCL rank, "
+                f"deterministic algorithms: history {hist_dp}, it and the "
+                f"fitted splats bit-equal to the undistributed fit's: "
+                f"{same}; that history equal to phase 3b's {hist}: "
+                f"{plain == hist}; ops without a deterministic version: "
+                f"{sorted(set(str(w.message).split('.')[0] for w in warned))}")
+            check(same, "the one-rank NCCL fit_splats differs from the "
+                  "undistributed one")
+        finally:
+            dist.destroy_process_group()
+
+        # times: the CLI commands, and the PLY export through the C++ codec
+        # against the numpy writers (into a sink that keeps nothing)
+        for name, argv in (
+                ("convert", ["convert", glb, out_ply, *conv]),
+                ("render FINAL with shadows", ["render", glb, png, "--mode",
+                                               "final", "--shadows", *conv,
+                                               *view]),
+                ("render OVERDRAW", ["render", glb, png, "--mode",
+                                     "overdraw", *conv, *view])):
+            with contextlib.redirect_stdout(io.StringIO()):
+                ms = host_ms(lambda: cli.main(argv), 3)
+            times.append(f"CLI {name} (the sphere's GLB, {CLI_RES} x 6"
+                         + (f", {W_PX}x{H_PX}" if name != "convert" else "")
+                         + f"): {ms:.2f} ms a command")
+        arrs = ply.splats_to_arrays(sp)
+        mult = scene.last_config.scale_multiplier
+        for fmt in (0, 1, 2):
+            sink = NullSink()
+            t = {}
+            for use_native in (True, False, False, True):
+                t0 = time.perf_counter()
+                ply.write_ply(sink, arrs, fmt=fmt, scale_multiplier=mult,
+                              use_native=use_native)
+                t.setdefault(use_native, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+            times.append(f"PLY export format {fmt} of {len(arrs['pos'])} "
+                         f"splats ({sink.nbytes / 1e6:.1f} MB, into memory): "
+                         f"C++ codec {t[True]} ms, numpy {t[False]} ms")
+    return {"paths": paths, "times": times}
 
 
 def training_card_vs_cpu(torch, TFIT, small, got, mult_small):
@@ -845,6 +1093,11 @@ def main():
                            dev)
     paths.update(renders["paths"])
     cap_r = renders["capture"]
+
+    # ---- 3d. the CLI and the one-rank NCCL paths ------------------------
+    clis = cli_paths(torch, kernels, scene, sp, prim, train["fit"], proj_kw,
+                     dev)
+    paths.update(clis["paths"])
 
     # ---- 4. kernels against their plain versions on the card ----------
     errs = {}
@@ -1217,7 +1470,7 @@ def main():
             f"shared bytes, {r['resident_warps_per_sm']} resident warps/SM"
             + (f"; fullest tile alone {r['fullest_tile_ms']:.4f} ms"
                if r["fullest_tile_ms"] is not None else "") + ")")
-    for line in train["times"] + renders["times"]:
+    for line in train["times"] + renders["times"] + clis["times"]:
         log(f"{line} ({smi})")
 
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,7 @@
-"""Minimal pure-numpy GLB (binary glTF 2.0) loader + writer (counterpart of
-``mesh2splat_tpu.io.gltf``, numpy accessor path only; ``to_device`` returns
-torch tensors).
+"""Minimal GLB (binary glTF 2.0) loader + writer (counterpart of
+``mesh2splat_tpu.io.gltf``: accessor decode and triangle assembly through the
+C++ codec of ``io/native.py`` when it is available, numpy otherwise;
+``to_device`` returns torch tensors).
 
 Host-side replacement for the reference's tiny_gltf-based SceneManager
 (reference: src/utils/SceneManager.cpp:195-459 ``parseGltfFile``). Semantics
@@ -18,9 +19,9 @@ replicated exactly:
     metallicRoughness textures, decoded and downscaled to <= 2048 px
     (reference: params.hpp:10, parsers.cpp:38-48)
 
-The writer (write_glb_multi) emits single-buffer GLBs for test fixtures and
-round-trip tests (the reference has no writer; ours makes golden tests
-self-contained).
+The writers (write_glb, write_glb_multi) emit single-buffer GLBs for test
+fixtures and round-trip tests (the reference has no writer; ours makes golden
+tests self-contained).
 """
 
 from __future__ import annotations
@@ -118,7 +119,25 @@ def _accessor_data(gltf, binary, accessor_index) -> np.ndarray:
 
 
 def _accessor_floats(gltf, binary, accessor_index) -> np.ndarray:
-    """Float32 accessor decode."""
+    """Float32 accessor decode; the native codec (csrc/glb_decode.cpp) with
+    the numpy _accessor_data as the fallback."""
+    from . import native
+
+    acc = gltf["accessors"][accessor_index]
+    if "sparse" not in acc and "bufferView" in acc:
+        dtype = _COMPONENT_DTYPES[acc["componentType"]]
+        ncomp = _TYPE_COUNTS[acc["type"]]
+        itemsize = np.dtype(dtype).itemsize * ncomp
+        view = gltf["bufferViews"][acc["bufferView"]]
+        base = view.get("byteOffset", 0) + acc.get("byteOffset", 0)
+        stride = view.get("byteStride", 0) or itemsize
+        out = native.accessor_decode(
+            bytes(binary[base:base + stride * acc["count"]]),
+            acc["count"], ncomp, acc["componentType"], stride,
+            bool(acc.get("normalized")),
+        )
+        if out is not None:
+            return out
     return _accessor_data(gltf, binary, accessor_index).astype(np.float32)
 
 
@@ -249,51 +268,60 @@ def load_glb(path_or_bytes) -> list[GltfPrimitive]:
 
             normal_matrix = np.linalg.inv(world[:3, :3]).T
 
-            world_pos = pos @ world[:3, :3].T + world[:3, 3]
-            tri_pos = world_pos[tri_idx]
+            from . import native
 
-            if nrm is not None:
-                nrm_w = nrm @ normal_matrix.T
-                nrm_w /= np.linalg.norm(nrm_w, axis=-1, keepdims=True) + 1e-12
-                tri_normal = nrm_w[tri_idx]
+            assembled = native.assemble_triangles(
+                pos, nrm, uv, tan, tri_idx.reshape(-1), world, normal_matrix
+            )
+            if assembled is not None:
+                tri_pos, tri_normal, tri_uv, tri_tangent = assembled
             else:
-                # flat fallback (:406-413)
-                fn = np.cross(
-                    tri_pos[:, 1] - tri_pos[:, 0], tri_pos[:, 2] - tri_pos[:, 0]
-                )
-                fn /= np.linalg.norm(fn, axis=-1, keepdims=True) + 1e-12
-                tri_normal = np.repeat(fn[:, None, :], 3, axis=1)
+                # numpy fallback (the same math as csrc/glb_decode.cpp)
+                world_pos = pos @ world[:3, :3].T + world[:3, 3]
+                tri_pos = world_pos[tri_idx]
 
-            if uv is not None:
-                tri_uv = uv[tri_idx]
-            else:
-                tri_uv = np.zeros((tri_idx.shape[0], 3, 2), np.float32)
+                if nrm is not None:
+                    nrm_w = nrm @ normal_matrix.T
+                    nrm_w /= np.linalg.norm(nrm_w, axis=-1, keepdims=True) + 1e-12
+                    tri_normal = nrm_w[tri_idx]
+                else:
+                    # flat fallback (:406-413)
+                    fn = np.cross(
+                        tri_pos[:, 1] - tri_pos[:, 0], tri_pos[:, 2] - tri_pos[:, 0]
+                    )
+                    fn /= np.linalg.norm(fn, axis=-1, keepdims=True) + 1e-12
+                    tri_normal = np.repeat(fn[:, None, :], 3, axis=1)
 
-            if tan is not None:
-                t_w = tan[:, :3] @ world[:3, :3].T
-                t_w /= np.linalg.norm(t_w, axis=-1, keepdims=True) + 1e-12
-                tan_w = np.concatenate([t_w, tan[:, 3:4]], axis=-1)
-                tri_tangent = tan_w[tri_idx]
-            else:
-                # per-face UV-derived fallback (:424-451)
-                dp1 = tri_pos[:, 1] - tri_pos[:, 0]
-                dp2 = tri_pos[:, 2] - tri_pos[:, 0]
-                duv1 = tri_uv[:, 1] - tri_uv[:, 0]
-                duv2 = tri_uv[:, 2] - tri_uv[:, 0]
-                det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
-                det = np.where(np.abs(det) < 1e-8, 1.0, det)
-                inv = (1.0 / det)[:, None]
-                tangent = (dp1 * duv2[:, 1:2] - dp2 * duv1[:, 1:2]) * inv
-                bitangent = (dp2 * duv1[:, 0:1] - dp1 * duv2[:, 0:1]) * inv
-                tangent /= np.linalg.norm(tangent, axis=-1, keepdims=True) + 1e-12
-                bitangent /= np.linalg.norm(bitangent, axis=-1, keepdims=True) + 1e-12
-                fn = np.cross(dp1, dp2)
-                fn /= np.linalg.norm(fn, axis=-1, keepdims=True) + 1e-12
-                handed = np.where(
-                    np.sum(np.cross(fn, tangent) * bitangent, axis=-1) < 0, -1.0, 1.0
-                )
-                face_tan = np.concatenate([tangent, handed[:, None]], axis=-1)
-                tri_tangent = np.repeat(face_tan[:, None, :], 3, axis=1).astype(np.float32)
+                if uv is not None:
+                    tri_uv = uv[tri_idx]
+                else:
+                    tri_uv = np.zeros((tri_idx.shape[0], 3, 2), np.float32)
+
+                if tan is not None:
+                    t_w = tan[:, :3] @ world[:3, :3].T
+                    t_w /= np.linalg.norm(t_w, axis=-1, keepdims=True) + 1e-12
+                    tan_w = np.concatenate([t_w, tan[:, 3:4]], axis=-1)
+                    tri_tangent = tan_w[tri_idx]
+                else:
+                    # per-face UV-derived fallback (:424-451)
+                    dp1 = tri_pos[:, 1] - tri_pos[:, 0]
+                    dp2 = tri_pos[:, 2] - tri_pos[:, 0]
+                    duv1 = tri_uv[:, 1] - tri_uv[:, 0]
+                    duv2 = tri_uv[:, 2] - tri_uv[:, 0]
+                    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+                    det = np.where(np.abs(det) < 1e-8, 1.0, det)
+                    inv = (1.0 / det)[:, None]
+                    tangent = (dp1 * duv2[:, 1:2] - dp2 * duv1[:, 1:2]) * inv
+                    bitangent = (dp2 * duv1[:, 0:1] - dp1 * duv2[:, 0:1]) * inv
+                    tangent /= np.linalg.norm(tangent, axis=-1, keepdims=True) + 1e-12
+                    bitangent /= np.linalg.norm(bitangent, axis=-1, keepdims=True) + 1e-12
+                    fn = np.cross(dp1, dp2)
+                    fn /= np.linalg.norm(fn, axis=-1, keepdims=True) + 1e-12
+                    handed = np.where(
+                        np.sum(np.cross(fn, tangent) * bitangent, axis=-1) < 0, -1.0, 1.0
+                    )
+                    face_tan = np.concatenate([tangent, handed[:, None]], axis=-1)
+                    tri_tangent = np.repeat(face_tan[:, None, :], 3, axis=1).astype(np.float32)
 
             # material (SceneManager.cpp parseGltfMaterial + ConversionPass bindings)
             mat_idx = prim.get("material", -1)
@@ -383,6 +411,34 @@ def to_device(prim: GltfPrimitive, device="cuda"):
 # Writer (test fixtures)
 # ----------------------------------------------------------------------------
 
+def write_glb(
+    path,
+    positions: np.ndarray,          # (V, 3) f32
+    indices: np.ndarray,            # (T, 3) u32
+    normals: np.ndarray | None = None,
+    uvs: np.ndarray | None = None,
+    tangents: np.ndarray | None = None,
+    base_color_png: bytes | None = None,
+    base_color_factor=(1, 1, 1, 1),
+    metallic_factor=1.0,
+    roughness_factor=1.0,
+    node_matrix: np.ndarray | None = None,
+):
+    """Write a minimal single-primitive GLB (the attributes left None are
+    omitted, so the loader takes its fallbacks). node_matrix: an optional
+    (4, 4) model matrix for the primitive's node."""
+    node = None
+    if node_matrix is not None:
+        # glTF stores a node's matrix column-major
+        node = {"matrix": np.asarray(node_matrix, np.float32).T.reshape(-1)
+                .tolist()}
+    return write_glb_multi(path, [dict(
+        positions=positions, indices=indices, normals=normals, uvs=uvs,
+        tangents=tangents, base_color_png=base_color_png,
+        base_color_factor=base_color_factor, metallic_factor=metallic_factor,
+        roughness_factor=roughness_factor)], [node])
+
+
 def write_glb_multi(path, primitives: list[dict], node_trs: list[dict] | None = None):
     """Write a multi-primitive GLB with full PBR materials and a node
     hierarchy — a production-shaped asset (SciFiHelmet-like: several
@@ -390,12 +446,12 @@ def write_glb_multi(path, primitives: list[dict], node_trs: list[dict] | None = 
     reference ingest path: SceneManager.cpp:195-459).
 
     primitives: list of dicts with keys
-      positions (V,3) f32, indices (T,3) u32, normals (V,3), uvs (V,2),
-      tangents (V,4) [optional], base_color_png / normal_png /
+      positions (V,3) f32, indices (T,3) u32, normals (V,3) [optional],
+      uvs (V,2) [optional], tangents (V,4) [optional], base_color_png / normal_png /
       metallic_roughness_png (bytes, optional), base_color_factor (4,),
       metallic_factor, roughness_factor.
     node_trs: per-primitive dicts with optional translation/rotation/scale
-      lists (glTF TRS order); each primitive gets its own child node under a
+      lists (glTF TRS order) or a column-major matrix; each primitive gets its own child node under a
       root node, exercising the scene-graph transform bake.
     """
     buffers = []
@@ -446,13 +502,15 @@ def write_glb_multi(path, primitives: list[dict], node_trs: list[dict] | None = 
             "POSITION": add_accessor(
                 np.asarray(prim["positions"], np.float32), "VEC3", minmax=True
             ),
-            "NORMAL": add_accessor(
-                np.asarray(prim["normals"], np.float32), "VEC3"
-            ),
-            "TEXCOORD_0": add_accessor(
-                np.asarray(prim["uvs"], np.float32), "VEC2"
-            ),
         }
+        if prim.get("normals") is not None:
+            attrs["NORMAL"] = add_accessor(
+                np.asarray(prim["normals"], np.float32), "VEC3"
+            )
+        if prim.get("uvs") is not None:
+            attrs["TEXCOORD_0"] = add_accessor(
+                np.asarray(prim["uvs"], np.float32), "VEC2"
+            )
         if prim.get("tangents") is not None:
             attrs["TANGENT"] = add_accessor(
                 np.asarray(prim["tangents"], np.float32), "VEC4"

@@ -1,6 +1,7 @@
 """Binary PLY codecs, byte-compatible with the reference's three formats
-(counterpart of ``mesh2splat_tpu.io.ply``: the numpy writers and reader;
-``arrays_to_splats`` returns torch tensors).
+(counterpart of ``mesh2splat_tpu.io.ply``: the C++ codec of ``io/native.py``
+by default, the numpy writers and reader otherwise; ``arrays_to_splats``
+returns torch tensors).
 
 Formats (reference: src/parsers/parsers.cpp:631-651 ``savePlyVector``):
   0 = standard 3DGS (62 float props incl. 45 zero f_rest_*)   parsers.cpp:431-514
@@ -165,13 +166,28 @@ def write_ply_compressed(arrs: dict, scale_multiplier: float) -> bytes:
     return _header(n, COMPRESSED_PROPS) + rec.tobytes()
 
 
-def write_ply(path_or_buf, arrs: dict, fmt: int = 0, scale_multiplier: float = 1.0):
-    """Dispatch like savePlyVector (reference: parsers.cpp:631-651), with
-    the numpy writers."""
-    writer = {
-        0: write_ply_standard, 1: write_ply_pbr, 2: write_ply_compressed
-    }.get(fmt, write_ply_standard)
-    data = writer(arrs, scale_multiplier)
+_FMT_PROPS = {0: STANDARD_PROPS, 1: PBR_PROPS, 2: COMPRESSED_PROPS}
+
+
+def write_ply(path_or_buf, arrs: dict, fmt: int = 0, scale_multiplier: float = 1.0,
+              use_native: bool = True):
+    """Dispatch like savePlyVector (reference: parsers.cpp:631-651). The C++
+    codec (io/native.py) writes the body when it is available and
+    ``use_native``; the numpy writers otherwise. The two differ by up to 2
+    ulp in the log and inverse-sigmoid columns (libm against numpy)."""
+    data = None
+    if use_native and fmt in _FMT_PROPS:
+        from . import native
+
+        a = _as_np(arrs)
+        body = native.encode(fmt, a, scale_multiplier)
+        if body is not None:
+            data = _header(a["pos"].shape[0], _FMT_PROPS[fmt]) + body
+    if data is None:
+        writer = {
+            0: write_ply_standard, 1: write_ply_pbr, 2: write_ply_compressed
+        }.get(fmt, write_ply_standard)
+        data = writer(arrs, scale_multiplier)
     if hasattr(path_or_buf, "write"):
         path_or_buf.write(data)
     else:
@@ -268,6 +284,39 @@ def read_ply(path, filter_invalid: bool = True) -> tuple[dict, bool]:
                 )
 
     names = {name for name, _ in props}
+
+    # float-only binary layouts (formats 0/1 and generic 3DGS) decode through
+    # the native codec when it is available
+    if (
+        not is_ascii
+        and "red" not in names
+        and {"x", "f_dc_0", "opacity", "scale_0", "rot_0"} <= names
+        and all(d == "<f4" for _, d in props)
+    ):
+        from . import native
+
+        col = {name: i for i, (name, _) in enumerate(props)}
+        have_n = {"nx", "ny", "nz"} <= names
+        have_pbr = {"metallicFactor", "roughnessFactor"} <= names
+        dec = native.decode_float_body(
+            num,
+            len(props),
+            {
+                "xyz": col["x"],
+                "normal": col["nx"] if have_n else -1,
+                "fdc": col["f_dc_0"],
+                "opacity": col["opacity"],
+                "scale": col["scale_0"],
+                "rot": col["rot_0"],
+                "metal": col["metallicFactor"] if have_pbr else -1,
+                "rough": col["roughnessFactor"] if have_pbr else -1,
+            },
+            raw.view("<f4").reshape(num, len(props)),
+        )
+        if dec is not None:
+            if filter_invalid:
+                dec = _finite_filter(dec)
+            return dec, have_n and have_pbr
 
     def get(name, default=None):
         if name in names:

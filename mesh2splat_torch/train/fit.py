@@ -9,6 +9,12 @@ b2 = 0.999 and eps = 1e-8 (the same update). A batch of views is a list of
 cameras and a (V, H, W, 3) target tensor; ``vmap`` over views becomes a
 loop. The entry points run on ``device`` ("cuda" unless the caller asks
 for "cpu"), moving their inputs there.
+
+Data-parallel training (``fit_splats(devices_mesh=)``, ``train_step_fn(
+mesh=)``) runs one process a device over a ``DeviceMesh`` with a ``dp``
+axis (``parallel.sharding``): each rank renders its block of the views, and
+the loss and the gradients are averaged over the ranks before Adam, the
+JAX step's ``pmean`` over ``dp``.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import dataclasses
 import torch
 
 from ..ops.projection import project_splats
+from ..parallel.sharding import max_over, mean_over, shard_batch
 from ..render.binning import required_overflow, round_pow2_budget
 from ..render.rasterize import rasterize_dense
 from ..render.tiled import rasterize_tiled
@@ -28,14 +35,6 @@ from ..types import (
 
 ADAM_BETAS = (0.9, 0.999)   # optax.adam's defaults
 ADAM_EPS = 1e-8
-
-
-def _no_mesh(devices_mesh):
-    if devices_mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a device mesh needs torch.distributed, "
-            "which the port brings in its parallel slice"
-        )
 
 
 @dataclasses.dataclass
@@ -135,41 +134,61 @@ def train_step_fn(optimizer, width, height, std_dev=1.0, use_tiled=True,
                   mesh=None, pair_capacity=0):
     """A (params, valid, cameras, targets) -> loss step that updates the
     optimizer's parameters in place (the JAX step returns new params and
-    optimizer state instead)."""
-    _no_mesh(mesh)
+    optimizer state instead). With ``mesh`` (a DeviceMesh with a ``dp``
+    axis) every rank passes all the views: it renders its block of them,
+    and the loss it returns and the gradients Adam takes are the means
+    over the ranks."""
 
     def step(params, valid, cameras, targets):
         optimizer.zero_grad(set_to_none=True)
+        if mesh is not None:
+            cameras = shard_batch(list(cameras), mesh)
+            targets = shard_batch(targets, mesh)
         loss = l2_loss(params, valid, cameras, targets, width, height,
                        std_dev=std_dev, use_tiled=use_tiled,
                        pair_capacity=pair_capacity)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            mean_over(loss, mesh)
+            for p in params.parameters():
+                if p.grad is not None:
+                    mean_over(p.grad, mesh)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 
 
 @torch.no_grad()
-def pair_budget(splats: Splats, cameras, width, height) -> int:
+def pair_budget(splats: Splats, cameras, width, height, mesh=None) -> int:
     """The class-C pair budget of ``l2_loss``'s renders: the worst view's
     need, projected in the format the loss renders (PLY_3DGS, where std_dev
-    has no effect), rounded up to a power of two; one host read."""
+    has no effect), rounded up to a power of two; one host read. With
+    ``mesh`` the worst over every rank's ``cameras`` (all_reduce MAX)."""
     need = torch.stack([
         required_overflow(project_splats(splats, cam,
                                          render_mode=RenderMode.ALBEDO,
                                          splat_format=SplatFormat.PLY_3DGS),
                           width, height)
         for cam in cameras]).max()
+    if mesh is not None:
+        max_over(need, mesh)
     return round_pow2_budget(int(need))
 
 
 def fit_splats(splats: Splats, cameras, targets, config: FitConfig,
                devices_mesh=None, device="cuda"):
     """Adam refinement of splat params against (V, H, W, 3) targets, one
-    camera per view. Returns (fitted Splats, per-step loss history)."""
-    _no_mesh(devices_mesh)
+    camera per view. Returns (fitted Splats, per-step loss history).
+    ``devices_mesh``: a DeviceMesh with a ``dp`` axis on ``device``'s type;
+    every rank passes the same inputs, the views are split over the ranks
+    (their number must divide evenly) and every rank gets the same
+    result."""
     dev = resolve_device(device)
+    if devices_mesh is not None and devices_mesh.device_type != dev.type:
+        raise ValueError(f"devices_mesh is on {devices_mesh.device_type}, "
+                         f"the fit on {dev.type}")
     splats = to_device(splats, dev)
     cameras = [to_device(c, dev) for c in cameras]
     targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
@@ -177,11 +196,15 @@ def fit_splats(splats: Splats, cameras, targets, config: FitConfig,
     valid = splats.valid
     opt = _adam(params.parameters(), config.lr)
 
-    pair_cap = (pair_budget(splats, cameras, config.width, config.height)
-                if config.use_tiled else 0)
+    pair_cap = 0
+    if config.use_tiled:
+        views = (cameras if devices_mesh is None
+                 else shard_batch(cameras, devices_mesh))
+        pair_cap = pair_budget(splats, views, config.width, config.height,
+                               mesh=devices_mesh)
     step = train_step_fn(opt, config.width, config.height,
                          std_dev=config.std_dev, use_tiled=config.use_tiled,
-                         pair_capacity=pair_cap)
+                         mesh=devices_mesh, pair_capacity=pair_cap)
     history = []
     for _ in range(config.steps):
         history.append(float(step(params, valid, cameras, targets)))

@@ -181,15 +181,18 @@ for m in pkgutil.walk_packages(mesh2splat_torch.__path__, "mesh2splat_torch."):
     importlib.import_module(m.name)
 assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
 for name in ("train.fit", "utils.checkpoint", "render.rasterize",
-             "render.shadows", "render.mesh_raster", "ops.sampling"):
+             "render.shadows", "render.mesh_raster", "ops.sampling",
+             "io.native", "ops.uv_unwrap", "utils.camera_controller",
+             "utils.profiling", "cli", "demo", "parallel.sharding"):
     assert "mesh2splat_torch." + name in sys.modules, name
 print("ok")
 """
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, train/, utils/, shadows and the mesh
-    raster included, imports with jax and the JAX package blocked."""
+    """Every module of the port, train/, utils/, parallel/, the CLI, the
+    demo, shadows and the mesh raster included, imports with jax and the
+    JAX package blocked."""
     out = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                          text=True, check=True)
     assert out.stdout.strip().endswith("ok")

@@ -525,3 +525,97 @@ def test_frame_cuda_matches_cpu(cuda, mode):
         assert float((f_c - f_p)[both].abs().max()) <= 1e-5
     assert float(img_p.max()) > 0.0
     assert float((img_c - img_p).abs().max()) <= 1e-3
+
+
+def _sphere_glb(path, n_tri=2000, seed=2):
+    """torch_parity.sphere_mesh as a GLB (the port's writer, a vertex soup
+    with a PNG base-colour texture)."""
+    import io
+
+    from PIL import Image
+
+    from mesh2splat_torch.io import gltf
+
+    mesh, mat = sphere_mesh(n_tri, seed=seed, tex=64)
+    buf = io.BytesIO()
+    Image.fromarray((mat["base_color"] * 255).astype(np.uint8)).save(
+        buf, format="PNG")
+    v = mesh["tri_pos"].reshape(-1, 3)
+    gltf.write_glb(path, v, np.arange(len(v), dtype=np.uint32).reshape(-1, 3),
+                   normals=mesh["tri_normal"].reshape(-1, 3),
+                   uvs=mesh["tri_uv"].reshape(-1, 2),
+                   base_color_png=buf.getvalue())
+
+
+def test_native_codec_builds_on_the_card_machine(cuda):
+    from mesh2splat_torch.io import native
+
+    assert native.available()
+
+
+def test_cli_convert_cuda_matches_cpu(cuda, tmp_path, capsys):
+    """The CLI's convert on the card counts the CPU run's splats, with zero
+    drops on both."""
+    from mesh2splat_torch import cli
+    from mesh2splat_torch.io import ply
+
+    glb = tmp_path / "sphere.glb"
+    _sphere_glb(glb)
+    counts = []
+    for d in ("cuda", "cpu"):
+        out = tmp_path / f"{d}.ply"
+        cli.main(["convert", str(glb), str(out), "--resolution", "128",
+                  "--device", d])
+        assert "dropped 0," in capsys.readouterr().out
+        counts.append(ply.read_ply(out)[0]["pos"].shape[0])
+    assert counts[0] == counts[1] > 1000
+
+
+def test_fit_splats_one_rank_nccl(cuda, tmp_path):
+    """fit_splats(devices_mesh=) over a one-rank NCCL group: the history and
+    the fitted splats bit-equal to the plain fit's. Both run with
+    torch.use_deterministic_algorithms: a splat over several tiles sums
+    its class-C gradients with index_add_, whose atomics add in any order
+    and change the last bits from one run to the next; the deterministic
+    index_add_ does not (the plain fit is run twice to show it)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from mesh2splat_torch.parallel import sharding
+    from mesh2splat_torch.train import fit
+
+    sp = state.splats(_random_splats(3000, seed=4), cuda)
+    cams = [make_camera(e, [0, 0, 0], [0, 1, 0], np.pi / 3, 256, 192,
+                        device=cuda) for e in ([0, 0, 4], [0.8, 0.4, 3.5])]
+    with torch.no_grad():
+        targets = torch.stack([fit.render_rgb(sp, c, 256, 192)
+                               for c in cams])
+    start = dataclasses.replace(sp, color=sp.color.flip(0))
+    cfg = fit.FitConfig(steps=3, lr=1e-2, width=256, height=192)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    sharding.init_distributed(f"file://{tmp_path}/store", 1, 0)
+    try:
+        ref_sp, ref = fit.fit_splats(start, cams, targets, cfg)
+        again_sp, again = fit.fit_splats(start, cams, targets, cfg)
+        mesh = sharding.make_mesh()
+        assert mesh.device_type == "cuda"
+        got_sp, got = fit.fit_splats(start, cams, targets, cfg,
+                                     devices_mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+    assert again == ref and torch.equal(again_sp.pos, ref_sp.pos)
+    assert got == ref and ref[-1] < ref[0]
+    for f in ("pos", "color", "scale", "quat"):
+        assert torch.equal(getattr(got_sp, f), getattr(ref_sp, f)), f
+
+
+def test_demo_turntable_on_the_card(cuda, tmp_path):
+    """The demo's turntable on the card: every frame written, FrameTimer's
+    samples from the frames past its latency."""
+    from mesh2splat_torch import demo
+
+    timer = demo.turntable(8, tmp_path, "cuda", size=64)
+    assert len(list((tmp_path / "turntable").glob("*.png"))) == 8
+    assert len(timer.samples) == 3 and timer.average_ms > 0

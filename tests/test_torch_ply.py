@@ -28,17 +28,22 @@ def _arrays(n=300, seed=0):
 
 @pytest.mark.parametrize("fmt", [0, 1, 2])
 def test_write_ply_byte_identical(fmt, tmp_path):
-    """Byte-identical to the JAX package's numpy writer, which the port
-    carries. Its default writer is a C++ codec whose log() differs from
-    numpy's by one ulp on some scales, so against that file the decoded
+    """The port's numpy writer is byte-identical to the JAX package's, and
+    the port's default writer (its C++ codec) to the JAX default (the same
+    codec). The two codecs' log() differ from numpy's by an ulp on some
+    scales, so between the numpy file and the default one the decoded
     values are compared."""
     arrs = _arrays()
     a, b = tmp_path / "jax.ply", tmp_path / "port.ply"
     JPLY.write_ply(str(a), arrs, fmt=fmt, scale_multiplier=0.0039,
                    use_native=False)
-    TPLY.write_ply(str(b), arrs, fmt=fmt, scale_multiplier=0.0039)
+    TPLY.write_ply(str(b), arrs, fmt=fmt, scale_multiplier=0.0039,
+                   use_native=False)
     assert a.read_bytes() == b.read_bytes()
     JPLY.write_ply(str(a), arrs, fmt=fmt, scale_multiplier=0.0039)
+    c = tmp_path / "port_default.ply"
+    TPLY.write_ply(str(c), arrs, fmt=fmt, scale_multiplier=0.0039)
+    assert a.read_bytes() == c.read_bytes()
     ja, jp = JPLY.read_ply(str(a))
     ta, tp = TPLY.read_ply(str(b))
     assert jp == tp == (fmt in (1, 2))

@@ -314,20 +314,46 @@ def test_checkpoint_round_trip(tmp_path):
         np.testing.assert_array_equal(out_q[k], out_p[k])
 
 
-def test_parallel_options_raise():
-    """Data-parallel training (devices_mesh= / mesh=) belongs to the port's
-    parallel slice: asking for it raises and names that slice."""
-    splats, cfg = quad_splats()
-    cams = state.cameras(stacked([j_camera(
-        eye=[0, 0, 2], center=[0, 0, 0], up=[0, 1, 0], fov_y_rad=np.pi / 3,
-        width=16, height=16)]), "cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TFIT.fit_splats(state.splats(host(splats), "cpu"), cams,
-                        np.zeros((1, 16, 16, 3), np.float32),
-                        TFIT.FitConfig(steps=1, width=16, height=16),
-                        devices_mesh=object(), device="cpu")
-    params = state.splat_params(host(JFIT.SplatParams.from_splats(splats)),
-                                "cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TFIT.train_step_fn(torch.optim.Adam(params.parameters()), 16, 16,
-                           mesh=object())
+def test_parallel_options_take_a_one_rank_mesh(tmp_path):
+    """fit_splats(devices_mesh=) and train_step_fn(mesh=) over an
+    in-process one-rank gloo group give exactly the plain results: with one
+    rank the views' shard is all of them and the all_reduce means are
+    identities."""
+    import torch.distributed as dist
+
+    from mesh2splat_torch.parallel import sharding
+
+    start, cams, targets, size, _ = random_scene()
+    tcams = state.cameras(cams, "cpu")
+    fit_cfg = TFIT.FitConfig(steps=3, lr=1e-2, width=size, height=size)
+    plain_sp, plain = TFIT.fit_splats(state.splats(host(start), "cpu"), tcams,
+                                      targets, fit_cfg, device="cpu")
+    src = host(JFIT.SplatParams.from_splats(start))
+    valid = torch.from_numpy(np.array(start.valid))
+    tgt = torch.from_numpy(targets.copy())
+
+    def one_step(mesh):
+        params = state.splat_params(src, "cpu")
+        step = TFIT.train_step_fn(torch.optim.Adam(params.parameters(),
+                                                   lr=1e-2), size, size,
+                                  mesh=mesh)
+        return step(params, valid, tcams, tgt), params
+
+    loss0, p0 = one_step(None)
+    sharding.init_distributed(f"file://{tmp_path}/store", 1, 0,
+                              platform="cpu")
+    try:
+        mesh = sharding.make_mesh()
+        dp_sp, dp = TFIT.fit_splats(state.splats(host(start), "cpu"), tcams,
+                                    targets, fit_cfg, devices_mesh=mesh,
+                                    device="cpu")
+        loss1, p1 = one_step(mesh)
+    finally:
+        dist.destroy_process_group()
+    assert dp == plain and plain[-1] < plain[0]
+    for k, v in state.splats_to_numpy(plain_sp).items():
+        np.testing.assert_array_equal(state.splats_to_numpy(dp_sp)[k], v,
+                                      err_msg=k)
+    assert torch.equal(loss1, loss0)
+    for a, b in zip(p1.parameters(), p0.parameters()):
+        assert torch.equal(a, b)
