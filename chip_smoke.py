@@ -12,7 +12,11 @@ without a card:
      20k-triangle textured sphere (bench.py's workload, built in numpy from
      seed 0) as a Scene on cuda -> convert(512, 6) -> export_ply in all three
      formats -> 1920x1080 renders in ALBEDO and FINAL -> an albedo-only tiled
-     raster; then the training paths at full size: fit_splats (3 Adam steps,
+     raster; then the untextured path: the same sphere with
+     Material.default() (no maps) -> convert(512, 6), where no K1 runs and
+     K2 computes each slot's local (one fill over the slots, the packed
+     key) -> a 1920x1080 ALBEDO render -> export_ply; then the training
+     paths at full size: fit_splats (3 Adam steps,
      2 views at 1920x1080, the 1,534,657 splats), fit_textures (the sphere at
      resolution 512, two 512x512 views, 2 steps), bench.py's 1080p gradient
      and the five-target G-buffer loss's gradient (the full composite
@@ -31,21 +35,25 @@ without a card:
      (its history and splats equal to the undistributed fit's, both with
      deterministic algorithms); the C++ codec must have built;
   4. each kernel against its plain PyTorch version on the same CUDA tensors,
-     at the shapes of phase 3 (K1 also the local it writes into its meta
-     table, against the torch slot fill too; K3 also the pairs each tile
-     walked; K4's state pass its per-segment states; K1, K4, K5 and K6 a
-     second run bit-equal to the first), with the tile histograms of the
-     inputs of K3-K6;
+     at the shapes of phase 3 (K1, and K2 in its local mode, also the local
+     each writes into its meta table, against the torch slot fill too; K3
+     also the pairs each tile walked; K4's state pass its per-segment
+     states; K1, K2 in local mode, K4, K5 and K6 a second run bit-equal to
+     the first), with the tile histograms of the inputs of K3-K6;
   5. the whole slice on the card against the same code on the CPU, small:
-     conversion and render, one fit_splats loss and gradient, one
-     fit_textures gradient, the tiled cubemap at 128^2, the FINAL frame
-     with shadows, the OVERDRAW, depth-tested and split-screen frames;
+     conversion (textured and untextured) and render, one fit_splats loss
+     and gradient, one fit_textures gradient, the tiled cubemap at 128^2,
+     the FINAL frame with shadows, the OVERDRAW, depth-tested and
+     split-screen frames;
   6. kernel times (CUDA events) beside the plain versions and the bound
      (and the naive walk's figure, the bound the first kernels were held
      to), K3-K6's time on their fullest tile alone, each kernel's
      registers, spills, shared memory and resident warps, the training
      step's time, the render paths' times, the CLI commands' times and
-     the PLY export through the C++ codec against the numpy writers.
+     the PLY export through the C++ codec against the numpy writers; the
+     untextured conversion's host time, and its device time and cummax
+     launches from torch.profiler, in turns with the parent's path for it
+     (the torch local fill, then K2 reading it).
 It ends with a JSON line of kernel numbers, the card's name and power limit,
 and {"ok": true, "device": {...}} as the last line.
 """
@@ -75,6 +83,8 @@ TEX_STEPS = 2
 TEX_PX = 512                  # fit_textures' views
 MAIN_KERNELS = ("texel_rows", "fragment_apply", "composite_full",
                 "composite_albedo")
+UNTEXTURED = {"texel_rows": 0, "fragment_apply": 0,   # the untextured path
+              "fragment_apply_local": 1}
 BENCH_LIGHT, BENCH_FAR, SHADOW_PX = [0.5, 1.5, 2.0], 10.0, 1024  # bench.py
 RENDER_CALLS = 5
 CLI_RES = 512                 # the CLI's conversion resolution (phase 3d)
@@ -248,6 +258,91 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def bits_equal(a, b):
+    """Equal bit for bit, any NaN equal to any NaN."""
+    import torch
+
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (a.isnan() & b.isnan())).all())
+
+
+def profiled(fn):
+    """One call of fn under torch.profiler after a warm-up: host wall ms,
+    the summed device time of the kernels it ran (ms), and the host ops and
+    device kernels as [(name, calls, device ms)], most device time first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    rows = {"ops": [], "kernels": []}
+    for e in prof.key_averages():
+        rows["kernels" if e.device_type == cuda else "ops"].append(
+            (e.key, e.count, dev_ms(e)))
+    for group in rows.values():
+        group.sort(key=lambda r: -r[2])
+    return {"wall_ms": wall, "busy_ms": sum(r[2] for r in rows["kernels"]),
+            **rows}
+
+
+@contextlib.contextmanager
+def parent_local_fill(TF, TSEG):
+    """The untextured conversion as the port ran it before K2 had its local
+    mode, for a comparison within one run: where the conversion asks K2
+    for local, the local is filled first with segments.expand_monotone over
+    the slots (from the offsets and widths of the packed key's fill) and
+    K2 reads it from row 2."""
+    real_apply, real_fill = TF.fragment_apply, TSEG.fill_value
+    seen = {}
+
+    def fill(offsets, counts, capacity, value):
+        seen[capacity] = (offsets, counts, capacity)
+        return real_fill(offsets, counts, capacity, value)
+
+    def apply(records, tapsT, metaT, *args, local_in_kernel=False):
+        if local_in_kernel:
+            metaT[2] = TSEG.expand_monotone(*seen[metaT.shape[1]])[0].float()
+        return real_apply(records, tapsT, metaT, *args)
+
+    TF.fragment_apply, TSEG.fill_value = apply, fill
+    try:
+        yield
+    finally:
+        TF.fragment_apply, TSEG.fill_value = real_apply, real_fill
+
+
+def cummax_ops(prof):
+    """(launches, device ms) of torch.cummax's scan kernel in a profiled()
+    result (PyTorch's CUDA cummax runs one scan_innermost_dim_with_indices
+    kernel a call; cumsum takes another)."""
+    rows = [r for r in prof["kernels"]
+            if "scan_innermost_dim_with_indices" in r[0]]
+    return sum(r[1] for r in rows), sum(r[2] for r in rows)
+
+
+def untextured_scene(prim, device):
+    """bench.py's sphere as a Scene whose material has no maps
+    (Material.default()): the conversion runs no K1."""
+    from mesh2splat_torch.io import gltf
+    from mesh2splat_torch.scene import Scene
+    from mesh2splat_torch.types import Material
+
+    mesh, _ = gltf.to_device(prim, device)
+    return Scene(primitives=[(mesh, Material.default(device), prim)])
+
+
 def covered_pairs(torch, fields, starts, kw, variant, chunks=None,
                   tile_batch=256):
     """The (pair, pixel) combinations the plain coverage test (g > 0) finds
@@ -305,7 +400,9 @@ def fullest_alone(torch, starts):
 
 
 PTXAS_ENTRIES = (   # mangled-name piece -> kernel row
-    ("texel_rows_kernel", "texel_rows"), ("fragment_kernel", "fragment_apply"),
+    ("texel_rows_kernel", "texel_rows"),
+    ("fragment_kernelILb0E", "fragment_apply"),
+    ("fragment_kernelILb1E", "fragment_apply_local"),
     ("composite_kernelILb1E", "composite_albedo"),
     ("composite_kernelILb0E", "composite_full"),
     ("composite_bwd_kernelILb1E", "composite_bwd_albedo"),
@@ -348,6 +445,60 @@ def ptxas_resources(report):
                 smem = max(smem, int(m2.group(1)) if m2 else 0)
             out[cur] = (regs, spill, smem)
     return out
+
+
+def untextured_path(torch, kernels, TSEG, prim, sp_tex, dev):
+    """Phase 3's untextured path: bench.py's sphere with Material.default()
+    through Scene.convert(512, 6), a 1920x1080 ALBEDO render and
+    export_ply, with the launch counters zeroed before and read after. No
+    K1 may run and K2 must run once, in its local mode; the conversion
+    runs one fill over the slot capacity (the packed key), drops nothing,
+    and gives the textured conversion's valid slots and positions (the
+    slots' local from K2, there from K1)."""
+    from mesh2splat_torch.io import ply
+    from mesh2splat_torch.types import RenderMode
+
+    scene = untextured_scene(prim, dev)
+    kernels.reset_launches()
+    with Capture(kernels) as cap, Calls(TSEG, "fill_value") as fills:
+        sp, stats = scene.convert(resolution=512, layers=6,
+                                  return_stats=True)
+        count = int(sp.count())
+        img = scene.render(sp, eye=EYE, width=W_PX, height=H_PX,
+                           fov_deg=60.0, mode=RenderMode.ALBEDO)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "untextured.ply")
+            scene.export_ply(sp, path, fmt=0)
+            n_ply = ply.read_ply(path)[0]["pos"].shape[0]
+        sync()
+    launches = dict(kernels.launches)
+    stats = {k: int(v) for k, v in stats.items()}
+    n_slots = cap.seen["fragment_apply"][0][2].shape[1]
+    slot_fills = [a for a in fills.got if a[2] == n_slots]
+    same = (torch.equal(sp.valid, sp_tex.valid)
+            and torch.equal(sp.pos, sp_tex.pos))
+    log(f"untextured path: splats {count} / capacity {sp.capacity}, "
+        f"overflow {stats}, {len(slot_fills)} fill(s) over the {n_slots} "
+        f"slots, valid and positions bit-equal to the textured "
+        f"conversion's: {same}; PLY {n_ply} splats; ALBEDO mean "
+        f"{float(img.mean()):.4f}; launches {launches}")
+    for k, n in UNTEXTURED.items():
+        check(launches[k] == n, f"untextured path: kernel {k} launched "
+              f"{launches[k]} times, expected {n}")
+    check(cap.seen["fragment_apply"][1]["local_in_kernel"],
+          "untextured path: K2 was not asked for local")
+    check(len(slot_fills) == 1, f"untextured path: {len(slot_fills)} slot "
+          "fills, expected 1 (the packed key; K2 computes local)")
+    check(all(v == 0 for v in stats.values()), f"overflow {stats}")
+    check(same and n_ply == count, "untextured conversion differs from the "
+          "textured one in valid or positions, or its PLY in count")
+    check(launches["composite_full"] + launches["composite_albedo"] == 1,
+          "untextured path: one composite expected")
+    check(tuple(img.shape) == (H_PX, W_PX, 3)
+          and bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01,
+          "untextured ALBEDO frame not finite or empty")
+    return {"launches": launches, "capture": cap, "fill": slot_fills[0],
+            "scene": scene}
 
 
 def training_inputs(torch, TFIT, sp, mult, dev):
@@ -1076,6 +1227,8 @@ def main():
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
     paths = {"main": launches}
+    unt = untextured_path(torch, kernels, TSEG, prim, sp, dev)
+    paths["untextured"] = unt["launches"]
 
     # ---- 3b. the training paths at full size ---------------------------
     mult = scene.last_config.scale_multiplier
@@ -1148,6 +1301,35 @@ def main():
         f"{int(live.sum())} live slots ({all_slots:.3g} over all slots)")
     check(valid_eq and errs["fragment_apply"] <= 2e-5,
           "K2 differs from its plain version")
+
+    # K2 in local mode, on the untextured path's inputs: kernel, plain and
+    # kernel again on clones with row 2 zeroed; local also against the
+    # torch fill of that path's slot fill arguments (the packed key's)
+    (rec_u, taps_u, meta_u), kw_u = unt["capture"].seen["fragment_apply"]
+    fill_u = TSEG.expand_monotone(*unt["fill"][:3])[0].float()
+
+    def k2l_run(fn):
+        m = meta_u.clone()
+        m[2] = 0
+        return fn(rec_u, taps_u, m, **kw_u), m
+
+    (out_k, m_k), (out_p, m_p), (out_2, m_2) = (
+        k2l_run(kernels.fragment_apply), k2l_run(TF.fragment_apply_plain),
+        k2l_run(kernels.fragment_apply))
+    out_eq, again_ok = bits_equal(out_k, out_p), bits_equal(out_2, out_k)
+    local_ok = (torch.equal(m_k, m_p) and torch.equal(m_k[2], fill_u)
+                and torch.equal(meta_u[2], fill_u) and torch.equal(m_2, m_k))
+    errs["fragment_apply_local"] = float((out_k - out_p).abs().nan_to_num()
+                                         .max())
+    log(f"K2 local mode: {meta_u.shape[1]} slots, the 20 output rows "
+        f"bit-equal to the plain version's: {out_eq} (max |diff| "
+        f"{errs['fragment_apply_local']:.3g}); local equal to the plain "
+        f"version's, the torch fill's and the untextured path's: "
+        f"{local_ok}; a second run bit-equal: {again_ok}; "
+        f"{int((out_k[19] > 0).sum())} valid slots")
+    check(out_eq and local_ok and again_ok,
+          "K2 in local mode differs from its plain version or itself")
+    del out_p, m_p, out_2, m_2
 
     walked = {}
     k3_inputs = {}
@@ -1289,6 +1471,18 @@ def main():
     log(f"card vs CPU (2k tris, res 128, 160x120): count {int(b.count())} "
         f"equal, splats max |diff| {sdiff:.3g}, image max |diff| {idiff:.3g}")
     check(sdiff <= 2e-5 and idiff <= 1e-3, "card and CPU slices differ")
+    unt_sp = {d: untextured_scene(small, d).convert(resolution=128, layers=6)
+              for d in ("cuda", "cpu")}
+    a, b = unt_sp["cuda"], unt_sp["cpu"]
+    vb = b.valid
+    check(int(a.count()) == int(b.count()) and torch.equal(a.valid.cpu(), vb)
+          and int(b.count()) > 1000,
+          "card and CPU untextured convert differ in count or valid")
+    udiff = max(float((getattr(a, f).cpu() - getattr(b, f))[vb].abs().max())
+                for f in ("pos", "color", "scale", "normal", "quat", "pbr"))
+    log(f"card vs CPU untextured conversion (2k tris, res 128): count "
+        f"{int(b.count())} equal, splats max |diff| {udiff:.3g}")
+    check(udiff <= 2e-5, "card and CPU untextured conversions differ")
     training_card_vs_cpu(torch, TFIT, small, got, mult_small=1.0 / 128)
     render_card_vs_cpu(torch, small, got, mult_small=1.0 / 128)
 
@@ -1299,6 +1493,39 @@ def main():
         mode=RenderMode.ALBEDO), 5)
     log(f"conversion {conv_ms:.2f} ms/mesh ({1e3 / conv_ms:.1f} conv/s), "
         f"1080p ALBEDO render {render_ms:.2f} ms ({smi})")
+
+    # the untextured conversion, and the parent's path for it (the local
+    # fill, then K2 reading it), in turns: parent, change, change, parent
+    def uconv():
+        return unt["scene"].convert(resolution=512, layers=6)
+
+    with parent_local_fill(TF, TSEG):
+        sp_parent = uconv()
+    sp_now = uconv()
+    check(all(bits_equal(getattr(sp_now, f.name).float(),
+                         getattr(sp_parent, f.name).float())
+              for f in dataclasses.fields(sp_now)),
+          "the parent's untextured path gives other splats")
+    del sp_parent, sp_now
+    unt_prof = {"parent": [], "change": []}
+    for label in ("parent", "change", "change", "parent"):
+        with (parent_local_fill(TF, TSEG) if label == "parent"
+              else contextlib.nullcontext()):
+            r = profiled(uconv)
+            r["host_ms"] = host_ms(uconv, 10)
+        unt_prof[label].append(r)
+        n_cm, ms_cm = cummax_ops(r)
+        log(f"untextured conversion ({label}'s path): host {r['host_ms']:.2f}"
+            f" ms a call (10 calls); profiled call: wall {r['wall_ms']:.2f} "
+            f"ms, device busy {r['busy_ms']:.3f} ms "
+            f"({100 * r['busy_ms'] / r['wall_ms']:.1f} % of wall), cummax "
+            f"{n_cm} launches {ms_cm:.3f} ms; top kernels "
+            f"{[(k[:48], n, round(ms, 3)) for k, n, ms in r['kernels'][:6]]}"
+            f" ({smi})")
+    check(all(cummax_ops(r)[0] + 1 == cummax_ops(q)[0]
+              for r in unt_prof["change"] for q in unt_prof["parent"]),
+          "the untextured conversion should run one cummax fewer than the "
+          "parent's path")
 
     n_tri = prim.tri_pos.shape[0]
     (rec, meta), kw1 = cap.seen["texel_rows"]
@@ -1322,7 +1549,8 @@ def main():
                    / F32_FLOPS_PER_S * 1e3)
         regs, spill, smem = resources.get(name, (None, None, None))
         warps = (8 * kernels.resident_blocks(name) if name not in
-                 ("texel_rows", "fragment_apply") else None)
+                 ("texel_rows", "fragment_apply", "fragment_apply_local")
+                 else None)
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paths[path][name], path=path,
@@ -1356,6 +1584,24 @@ def main():
           58 * n_tri * 4 + taps.numel() * 4 + 4 * cap_slots * 4
           + 20 * cap_slots * 4,
           cap_slots * 400, errs["fragment_apply"])
+    # K2 in local mode on the untextured path: reads meta rows 0, 1, 3 and
+    # the records, writes its 20 rows and local (row 2); no taps
+    cap_u = meta_u.shape[1]
+    m_local = meta_u.clone()
+    entry("fragment_apply_local", "mesh2splat_torch/kernels/csrc/fragment.cu",
+          "mesh2splat_tpu/ops/fragment.py:674",
+          event_ms(lambda: kernels.fragment_apply(rec_u, taps_u, m_local,
+                                                  **kw_u), 20),
+          event_ms(lambda: TF.fragment_apply_plain(rec_u, taps_u, m_local,
+                                                   **kw_u), 20),
+          58 * n_tri * 4 + 3 * cap_u * 4 + 21 * cap_u * 4,
+          cap_u * 400, errs["fragment_apply_local"], path="untextured")
+    kw_read = dict(kw_u, local_in_kernel=False)
+    read_ms = event_ms(lambda: kernels.fragment_apply(rec_u, taps_u, meta_u,
+                                                      **kw_read), 20)
+    log(f"K2 on the untextured inputs without its local mode (local read "
+        f"from row 2): {read_ms:.4f} ms, with it {rows[-1]['ms']:.4f} ms "
+        f"({smi})")
     # Operations, one rule for K3-K6: per pair the conic's axes and the
     # plane coefficients (~60; K4 ~100 with the chain to the mean and conic
     # rows), and per covered (pair, pixel) the coverage test (the falloff

@@ -8,6 +8,7 @@ tensors take the plain PyTorch versions beside them.
 
   texel_rows        K1  ops/fragment.py::texel_rows
   fragment_apply    K2  ops/fragment.py::fragment_apply
+  fragment_apply_local  K2  the same, local_in_kernel=True
   composite_full    K3  render/composite.py::composite_tiles
   composite_albedo  K3  the same, albedo_only=True
   composite_bwd_full    K4  the backward of composite_tiles (main pass)
@@ -26,10 +27,11 @@ import torch
 
 from . import build as _build
 
-launches = {"texel_rows": 0, "fragment_apply": 0, "composite_full": 0,
-            "composite_albedo": 0, "composite_bwd_full": 0,
-            "composite_bwd_albedo": 0, "composite_bwd_state_full": 0,
-            "composite_bwd_state_albedo": 0, "min_depth": 0, "overdraw": 0}
+launches = {"texel_rows": 0, "fragment_apply": 0, "fragment_apply_local": 0,
+            "composite_full": 0, "composite_albedo": 0,
+            "composite_bwd_full": 0, "composite_bwd_albedo": 0,
+            "composite_bwd_state_full": 0, "composite_bwd_state_albedo": 0,
+            "min_depth": 0, "overdraw": 0}
 
 REC_W = 64
 MAX_LEVELS = 8
@@ -68,7 +70,8 @@ _SIGNATURES = {
     "texel_rows": ("m2s_texel_rows",
                    [_P, _L, _P, _L, _I, _Geom, _I, _I, _P, _P]),
     "fragment": ("m2s_fragment_apply",
-                 [_P, _L, _P, _P, _L, _I, _Geom, _I, _I, _I, _I, _I, _P, _P]),
+                 [_P, _L, _P, _P, _L, _I, _Geom, _I, _I, _I, _I, _I, _I, _P,
+                  _P]),
     "composite": ("m2s_composite_forward",
                   [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P]),
     "composite_bwd": ("m2s_composite_backward",
@@ -167,13 +170,19 @@ def texel_rows(records, metaT, *, res, geom, k, n_rows):
 
 
 def fragment_apply(records, tapsT, metaT, *, res, geom, k, has_base,
-                   has_normal, has_mr, taps_packed):
+                   has_normal, has_mr, taps_packed, local_in_kernel=False):
     """K2 forward: (OUT_W=20, cap) f32 splat rows. tapsT is (k*40, cap) f32,
     (k*20, cap) int32 bf16 pairs when taps_packed, or ignored when the
-    material has no texture."""
+    material has no texture. local_in_kernel: compute each slot's local
+    from metaT rows 0-1 (as K1 does: the (tri, row_local) keys must never
+    decrease along the slots), write it into row 2 of metaT, which is then
+    not read, and use it; fewer than 2^30 slots."""
     _check(records, "records", torch.float32, 2, rows=REC_W)
     _check(metaT, "metaT", torch.float32, 2, records.device, rows=4)
     cap = metaT.shape[1]
+    if local_in_kernel and cap >= 1 << 30:
+        raise ValueError(f"metaT: {cap} slots, K2 computes local for fewer "
+                         "than 2^30")
     has_stack = has_base or has_normal or has_mr
     if has_stack:
         rows = k * 4 * 10 // (2 if taps_packed else 1)
@@ -186,9 +195,11 @@ def fragment_apply(records, tapsT, metaT, *, res, geom, k, has_base,
         records.data_ptr(), records.shape[1],
         tapsT.data_ptr() if has_stack else None, metaT.data_ptr(), cap, res,
         _geom(geom), k, int(has_base), int(has_normal), int(has_mr),
-        int(taps_packed), out.data_ptr(), _stream(records.device))
+        int(taps_packed), int(local_in_kernel), out.data_ptr(),
+        _stream(records.device))
     _raise_on(err, "fragment_apply")
-    launches["fragment_apply"] += 1
+    launches["fragment_apply_local" if local_in_kernel
+             else "fragment_apply"] += 1
     return out
 
 

@@ -6,16 +6,24 @@
 //
 // Replaces the Pallas kernel B of mesh2splat_tpu/ops/fragment.py::
 // fragment_apply / _fragment_fwd_impl (both its window-DMA and gather
-// variants). Plain version: mesh2splat_torch/ops/fragment.py::_fragment_math.
+// variants), with its local_in_kernel mode: LOCAL computes each slot's
+// index within its texel-row segment (`local`) from meta rows 0-1, as K1
+// does (slot_common.cuh, warp_slot_local), writes it into meta row 2 and
+// uses it; otherwise `local` is read from row 2. Plain version:
+// mesh2splat_torch/ops/fragment.py::fragment_apply_plain (slot_local when
+// local_in_kernel, then _fragment_math).
 //
 // Bound on the H100: bytes. A slot reads its taps (k*20 int32 when packed,
-// k*40 f32 otherwise), 4 meta floats and the 58 record floats of its
-// triangle, and writes 20 floats; its few hundred flops are far below the
-// card's balance. Design: one thread per slot, all field-major rows so that
+// k*40 f32 otherwise, none without a texture), 4 meta floats (3 in LOCAL,
+// which writes the fourth) and the 58 record floats of its triangle, and
+// writes 20 floats; its few hundred flops are far below the card's
+// balance. Design: one thread per slot, all field-major rows so that
 // neighbouring threads read and write neighbouring addresses; record rows are
 // read by triangle id and mostly hit in cache, since consecutive slots share
-// their triangle. The TPU's record-window DMA and one-hot MXU select are not
-// carried over.
+// their triangle. In LOCAL each warp of 32 slots scans alone; the search for
+// its first slot's segment start reads keys the warps before it have just
+// read, mostly from cache. The TPU's record-window DMA and one-hot MXU
+// select are not carried over.
 #include "slot_common.cuh"
 
 namespace {
@@ -59,18 +67,36 @@ __device__ __forceinline__ float rsqrt_ieee(float x) {
   return 1.0f / sqrtf(x);
 }
 
+// LOCAL: `local` computed and written to local_row (meta row 2, which is
+// then not read); otherwise read from meta row 2 (local_row unused).
+template <bool LOCAL>
 __global__ void fragment_kernel(const float* __restrict__ records,
                                 int64_t t_pad, const void* __restrict__ taps,
                                 const float* __restrict__ meta, int64_t cap,
                                 int res, M2SGeom geom, Flags fl,
-                                float* __restrict__ out) {
+                                float* __restrict__ out,
+                                float* __restrict__ local_row) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cap) return;
+  float local = 0.0f;
+  if constexpr (LOCAL) {
+    // the whole warp scans: it leaves only when its first slot is past cap
+    const int32_t w0 = (int32_t)i - (int32_t)(threadIdx.x & 31);
+    if (w0 >= cap) return;
+    const float kt[1] = {i < cap ? meta[i] : 0.0f};
+    const float kr[1] = {i < cap ? meta[cap + i] : 0.0f};
+    float loc[1];
+    warp_slot_local<1>(meta, meta + cap, w0, (int32_t)cap, kt, kr, loc);
+    if (i >= cap) return;
+    local = loc[0];
+    local_row[i] = local;
+  } else {
+    if (i >= cap) return;
+  }
   int64_t tri = (int64_t)meta[i];
   tri = tri < 0 ? 0 : (tri >= t_pad ? t_pad - 1 : tri);
   RecCol f{records, t_pad, tri};
-  SlotUV s = slot_uv(f, meta[cap + i], meta[2 * cap + i], meta[3 * cap + i],
-                     res);
+  SlotUV s = slot_uv(f, meta[cap + i], LOCAL ? local : meta[2 * cap + i],
+                     meta[3 * cap + i], res);
   auto lerp = [&](int a, int b, int c) { return lerp3(s, f(a), f(b), f(c)); };
   float px = lerp(R_PAX, R_PBX, R_PCX);
   float py = lerp(R_PAY, R_PBY, R_PCY);
@@ -146,17 +172,25 @@ __global__ void fragment_kernel(const float* __restrict__ records,
 
 }  // namespace
 
+// local != 0: the LOCAL mode, which writes meta row 2 (cap below 2^30).
 extern "C" int m2s_fragment_apply(const float* records, int64_t t_pad,
-                                  const void* taps, const float* meta,
+                                  const void* taps, float* meta,
                                   int64_t cap, int res, M2SGeom geom, int k,
                                   int has_base, int has_normal, int has_mr,
-                                  int packed, float* out, void* stream) {
+                                  int packed, int local, float* out,
+                                  void* stream) {
   if (cap > 0) {
     Flags fl{has_base, has_normal, has_mr, packed, k};
-    const int threads = 256;
+    const int threads = 256;  // whole warps: LOCAL scans a warp's 32 slots
     const int64_t blocks = (cap + threads - 1) / threads;
-    fragment_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        records, t_pad, taps, meta, cap, res, geom, fl, out);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (local)
+      fragment_kernel<true><<<(unsigned)blocks, threads, 0, st>>>(
+          records, t_pad, taps, meta, cap, res, geom, fl, out,
+          meta + 2 * cap);
+    else
+      fragment_kernel<false><<<(unsigned)blocks, threads, 0, st>>>(
+          records, t_pad, taps, meta, cap, res, geom, fl, out, nullptr);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Per-slot math shared by the conversion kernels K1 (texel_rows.cu) and K2
-// (fragment.cu): the texel centre, barycentrics, top-left coverage and the
-// packed tap-atlas index of one conversion slot.
+// (fragment.cu): each slot's index within its texel-row segment (`local`),
+// the texel centre, barycentrics, top-left coverage and the packed
+// tap-atlas index of one conversion slot.
 //
 // Every expression repeats mesh2splat_torch/ops/fragment.py (_row_span_cols,
 // _slot_uv, _tap_index) operation for operation and in the same order. The
@@ -196,4 +197,115 @@ __device__ __forceinline__ TapIndex tap_index(float uu, float vv, float mid,
   t.row = l.off + floor_div(texel, k);
   t.sub = texel - floor_div(texel, k) * k;
   return t;
+}
+
+// ---- each slot's index within its texel-row segment (`local`) ----------
+//
+// The TPU kernels walk the slots in order and carry the last segment start
+// across grid steps in SMEM (mesh2splat_tpu/ops/fragment.py _local_scan);
+// blocks here run in no order. Slot allocation is triangle-ordered, so the
+// key (tri, row_local) never decreases along the slots (the slots past
+// `total` repeat the last key): the start of the segment of a warp's first
+// slot is the first slot with its key, which the warp finds by a 32-way
+// search over meta rows 0-1 (first the 32 slots before it, then the whole
+// prefix). Inside the warp a max-scan of "a segment starts here" gives
+// every other slot's start (per thread over its slots, then shuffles).
+// Each warp works alone: no block order, no barrier, no atomics, no state
+// between launches. Slot indices are int32: the wrappers take fewer than
+// 2^30 slots.
+
+constexpr unsigned WARP_FULL = 0xffffffffu;
+
+__device__ __forceinline__ bool key_below(int32_t t, int32_t r, int32_t t0,
+                                          int32_t r0) {
+  return t < t0 || (t == t0 && r < r0);
+}
+
+// The first slot in [0, j0] whose key is not below (t0, r0), the key of
+// slot j0: with keys that never decrease, the start of j0's segment. Called
+// by a whole warp; every lane returns the result. Each round probes 32
+// slots and keeps the interval between the last probe below the key and
+// the next: first the 32 slots before j0, then strides over the prefix.
+static __device__ int32_t segment_first(const float* __restrict__ tri_row,
+                                        const float* __restrict__ row_row,
+                                        int32_t j0, int32_t t0, int32_t r0) {
+  const int lane = threadIdx.x & 31;
+  int32_t hi = j0;  // the answer lies in [lo, hi]
+  int32_t lo = max(j0 - 32, 0);
+  bool near = true;
+  while (lo < hi) {
+    const int32_t step = near ? 1 : (hi - lo + 31) / 32;
+    const int32_t p = lo + lane * step;
+    bool below = false;
+    if (p < hi)
+      below = key_below(f2i(__ldg(tri_row + p)), f2i(__ldg(row_row + p)), t0,
+                        r0);
+    const unsigned m = __ballot_sync(WARP_FULL, below);
+    if (m == 0) {
+      // slot lo is not below: the answer is lo, or lies before the window
+      hi = lo;
+      if (near) lo = 0;
+      near = false;
+      continue;
+    }
+    const int32_t last = lo + (31 - __clz((int)m)) * step;
+    hi = min(last + step, hi);
+    lo = last + 1;
+    near = false;
+  }
+  return hi;
+}
+
+// `local` of the SPT consecutive slots from w0 + lane * SPT, whose keys
+// tri[], row[] (meta rows 0-1) the thread holds (any value past cap).
+// Called by a whole warp whose first slot w0 lies below cap.
+template <int SPT>
+__device__ __forceinline__ void warp_slot_local(
+    const float* __restrict__ tri_row, const float* __restrict__ row_row,
+    int32_t w0, int32_t cap, const float (&tri)[SPT],
+    const float (&row)[SPT], float (&local)[SPT]) {
+  const int lane = threadIdx.x & 31;
+  const int32_t base = w0 + lane * SPT;
+
+  // the key of the slot before this thread's first
+  int32_t pt = __shfl_up_sync(WARP_FULL, f2i(tri[SPT - 1]), 1);
+  int32_t pr = __shfl_up_sync(WARP_FULL, f2i(row[SPT - 1]), 1);
+  if (lane == 0 && w0 > 0) {
+    pt = f2i(__ldg(tri_row + w0 - 1));
+    pr = f2i(__ldg(row_row + w0 - 1));
+  }
+
+  // running segment start over this thread's slots (-1: none yet); lane 0
+  // starts from the segment start of the warp's first slot
+  int32_t m = -1;
+  const bool cont = w0 > 0 && f2i(tri[0]) == pt && f2i(row[0]) == pr;
+  if (__shfl_sync(WARP_FULL, cont, 0)) {
+    const int32_t s0 = segment_first(
+        tri_row, row_row, w0, __shfl_sync(WARP_FULL, f2i(tri[0]), 0),
+        __shfl_sync(WARP_FULL, f2i(row[0]), 0));
+    if (lane == 0) m = s0;
+  }
+  int32_t run[SPT];
+#pragma unroll
+  for (int s = 0; s < SPT; ++s) {
+    const int32_t j = base + s;
+    const int32_t t = f2i(tri[s]), r = f2i(row[s]);
+    if (j < cap && (j == 0 || t != pt || r != pr)) m = j;
+    run[s] = m;
+    pt = t;
+    pr = r;
+  }
+
+  // the warp's exclusive max-scan of the thread totals
+  int32_t inc = m;
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int32_t y = __shfl_up_sync(WARP_FULL, inc, d);
+    if (lane >= d) inc = max(inc, y);
+  }
+  int32_t pre = __shfl_up_sync(WARP_FULL, inc, 1);
+  if (lane == 0) pre = -1;
+#pragma unroll
+  for (int s = 0; s < SPT; ++s)
+    local[s] = (float)(base + s - max(pre, run[s]));
 }

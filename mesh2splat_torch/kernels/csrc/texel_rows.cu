@@ -14,16 +14,9 @@
 // address arithmetic of the record loads (PERF.md section 6). Without the
 // math the kernel runs near the bytes bound.
 //
-// `local` without a carry. The TPU walks the slots in order and carries the
-// last segment start across grid steps in SMEM; blocks here run in no
-// order. Slot allocation is triangle-ordered, so the key (tri, row_local)
-// never decreases along the slots (the slots past `total` repeat the last
-// key): the start of the segment of a warp's first slot is the first slot
-// with its key, which the warp finds by a 32-way search over meta rows 0-1
-// (first the 32 slots before it, then the whole prefix). Inside the warp a
-// max-scan of "a segment starts here" gives every other slot's start (per
-// thread over its slots, then shuffles). Each warp works alone: no block
-// order, no barrier, no atomics, no state between launches.
+// `local` without a carry: each warp finds the start of its first slot's
+// segment by a search over the sorted (tri, row_local) keys and max-scans
+// the rest (slot_common.cuh, warp_slot_local; K2 shares it).
 //
 // Each thread takes SPT consecutive slots with vector loads and stores; the
 // record rows are read straight from the (REC_W, T_pad) table by triangle
@@ -38,7 +31,6 @@ constexpr int THREADS = 256;
 constexpr int SPT = 4;                     // slots a thread
 constexpr int WARP_SLOTS = 32 * SPT;
 constexpr int BLOCK_SLOTS = THREADS * SPT;
-constexpr unsigned FULL = 0xffffffffu;
 
 struct RecCol {
   const float* __restrict__ records;
@@ -48,11 +40,6 @@ struct RecCol {
     return __ldg(records + (int64_t)f * t_pad + tri);
   }
 };
-
-__device__ __forceinline__ bool key_below(int32_t t, int32_t r, int32_t t0,
-                                          int32_t r0) {
-  return t < t0 || (t == t0 && r < r0);
-}
 
 // SPT consecutive floats of one meta row from slot `base` (0 past cap).
 template <bool VEC>
@@ -92,41 +79,6 @@ __device__ __forceinline__ void store_slots(T* __restrict__ row, int32_t base,
     if (base + s < cap) row[base + s] = v[s];
 }
 
-// The first slot in [0, j0] whose key is not below (t0, r0), the key of
-// slot j0: with keys that never decrease, the start of j0's segment. Called
-// by a whole warp; every lane returns the result. Each round probes 32
-// slots and keeps the interval between the last probe below the key and
-// the next: first the 32 slots before j0, then strides over the prefix.
-__device__ int32_t segment_first(const float* __restrict__ tri_row,
-                                 const float* __restrict__ row_row,
-                                 int32_t j0, int32_t t0, int32_t r0) {
-  const int lane = threadIdx.x & 31;
-  int32_t hi = j0;  // the answer lies in [lo, hi]
-  int32_t lo = max(j0 - 32, 0);
-  bool near = true;
-  while (lo < hi) {
-    const int32_t step = near ? 1 : (hi - lo + 31) / 32;
-    const int32_t p = lo + lane * step;
-    bool below = false;
-    if (p < hi)
-      below = key_below(f2i(__ldg(tri_row + p)), f2i(__ldg(row_row + p)), t0,
-                        r0);
-    const unsigned m = __ballot_sync(FULL, below);
-    if (m == 0) {
-      // slot lo is not below: the answer is lo, or lies before the window
-      hi = lo;
-      if (near) lo = 0;
-      near = false;
-      continue;
-    }
-    const int32_t last = lo + (31 - __clz((int)m)) * step;
-    hi = min(last + step, hi);
-    lo = last + 1;
-    near = false;
-  }
-  return hi;
-}
-
 // The packed atlas row of a covered slot: floor(texel / k) with
 // k = 2^kshift (an arithmetic shift floors a negative texel too).
 __device__ __forceinline__ int32_t atlas_row(const SlotUV& su,
@@ -157,50 +109,12 @@ __global__ void __launch_bounds__(THREADS)
   load_slots<VEC>(row_row, base, cap, row);
   load_slots<VEC>(live_row, base, cap, live);
 
-  // the key of the slot before this thread's first
-  int32_t pt = __shfl_up_sync(FULL, f2i(tri[SPT - 1]), 1);
-  int32_t pr = __shfl_up_sync(FULL, f2i(row[SPT - 1]), 1);
-  if (lane == 0 && w0 > 0) {
-    pt = f2i(__ldg(tri_row + w0 - 1));
-    pr = f2i(__ldg(row_row + w0 - 1));
-  }
-
-  // running segment start over this thread's slots (-1: none yet); lane 0
-  // starts from the segment start of the warp's first slot
-  int32_t m = -1;
-  const bool cont = w0 > 0 && f2i(tri[0]) == pt && f2i(row[0]) == pr;
-  if (__shfl_sync(FULL, cont, 0)) {
-    const int32_t s0 = segment_first(
-        tri_row, row_row, w0, __shfl_sync(FULL, f2i(tri[0]), 0),
-        __shfl_sync(FULL, f2i(row[0]), 0));
-    if (lane == 0) m = s0;
-  }
-  int32_t run[SPT];
-#pragma unroll
-  for (int s = 0; s < SPT; ++s) {
-    const int32_t j = base + s;
-    const int32_t t = f2i(tri[s]), r = f2i(row[s]);
-    if (j < cap && (j == 0 || t != pt || r != pr)) m = j;
-    run[s] = m;
-    pt = t;
-    pr = r;
-  }
-
-  // the warp's exclusive max-scan of the thread totals
-  int32_t inc = m;
-#pragma unroll
-  for (int d = 1; d < 32; d *= 2) {
-    const int32_t y = __shfl_up_sync(FULL, inc, d);
-    if (lane >= d) inc = max(inc, y);
-  }
-  int32_t pre = __shfl_up_sync(FULL, inc, 1);
-  if (lane == 0) pre = -1;
+  float local[SPT];
+  warp_slot_local<SPT>(tri_row, row_row, w0, cap, tri, row, local);
 
   int32_t rows_out[SPT];
-  float local[SPT];
 #pragma unroll
   for (int s = 0; s < SPT; ++s) {
-    local[s] = (float)(base + s - max(pre, run[s]));
     int64_t t = f2i(tri[s]);
     t = t < 0 ? 0 : (t >= t_pad ? t_pad - 1 : t);
     RecCol rec{records, t_pad, t};

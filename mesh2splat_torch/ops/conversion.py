@@ -8,7 +8,9 @@
   3. Row -> texel-slot expansion by scatter-max + cummax forward fills: the
      replacement for the reference's atomic appends.
   4. The fragment shader (ops.fragment): K1 texel rows, one texture gather,
-     K2 fragment math.
+     K2 fragment math. Each slot's index within its texel row (``local``)
+     comes from the kernels: K1 computes it where it runs, else K2 does;
+     only a mesh too large for the packed slot key fills it in stage 3.
 
 ``convert`` is differentiable with respect to the material (textures and
 factors) and the mesh attributes: the f32 tap atlas, the tap gather and the
@@ -222,11 +224,17 @@ def _row_widths(mesh, ouv, res, row_cap, max_texels_per_tri):
     return geo, row_tri, row_local, width, n_rows.sum()
 
 
+# Each slot's (tri, row_local) travels through one cummax as the packed key
+# tri * 4096 + row_local (texel rows per triangle never exceed res <= 4096)
+# while t * 4096 stays below this; a larger mesh takes expand_to_slots'
+# generic fill, which also gives each slot's local.
+PACKED_KEY_LIMIT = 2**31
+
+
 def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None):
     """Stages 1-3: per-triangle attributes, scanline row expansion and
-    row -> texel-slot expansion. Each slot's ``local`` is not filled here:
-    K1 computes it from the slots' (tri, row_local), or, without K1, the
-    conversion fills it from ``offsets`` and ``width``."""
+    row -> texel-slot expansion. ``local`` is None where the mesh packs:
+    the kernels compute it from the slots' (tri, row_local) keys."""
     res = config.resolution
     cap = config.capacity
     attrs = _attrs(mesh, bbox_min, bbox_max, ortho_uv)
@@ -236,7 +244,8 @@ def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None):
         mesh, ouv, res, config.row_capacity, config.max_texels_per_tri)
 
     offsets, total = segments.alloc_slots(width, cap)
-    if t * 4096 < 2**31:
+    local = None
+    if t * 4096 < PACKED_KEY_LIMIT:
         # one monotone packed channel (tri * 4096 + row_local) through cummax
         packed = segments.fill_value(offsets, width, cap,
                                      row_tri * 4096 + row_local)
@@ -244,7 +253,7 @@ def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None):
         tri_id_safe = packed >> 12
         s_row_local = packed & 4095
     else:
-        _, _, _, ex = segments.expand_to_slots(
+        _, local, _, ex = segments.expand_to_slots(
             offsets, width, cap, extra=torch.stack([row_tri, row_local])
         )
         tri_id_safe = torch.clamp(ex[0], min=0)
@@ -252,9 +261,8 @@ def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None):
     in_budget = torch.arange(cap, dtype=torch.int32, device=ouv.device) < total
     return dict(
         attrs=attrs, ouv=ouv, geo=geo, tri_id_safe=tri_id_safe,
-        s_row_local=s_row_local, offsets=offsets, width=width,
-        in_budget=in_budget, total=total, t=t, row_demand=row_demand,
-        slot_demand=width.sum(),
+        s_row_local=s_row_local, local=local, in_budget=in_budget,
+        total=total, t=t, row_demand=row_demand, slot_demand=width.sum(),
     )
 
 
@@ -353,9 +361,11 @@ def _finish_convert(mesh, config, stack, mids, factors, has_base,
     record = torch.where(torch.isfinite(record), record, 0.0)
     t_pad = -(-(t + 128) // 128) * 128
     records = F.pad(record.T, (0, t_pad - t)).contiguous()  # (REC_W, T_pad)
+    local = ex["local"]
     metaT = torch.stack([
         ex["tri_id_safe"], ex["s_row_local"],
-        torch.zeros_like(ex["s_row_local"]), ex["in_budget"].to(torch.int32),
+        torch.zeros_like(ex["s_row_local"]) if local is None else local,
+        ex["in_budget"].to(torch.int32),
     ]).float().contiguous()  # (4, cap) [tri, row_local, local, live]
 
     taps_packed = False
@@ -373,16 +383,17 @@ def _finish_convert(mesh, config, stack, mids, factors, has_base,
             records, metaT, res=res, geom=geom, k=k, n_rows=atlasT.shape[1],
         )
         tapsT = atlasT.index_select(1, rows_idx)  # (k*4*10[/2], cap)
+        local_in_kernel = False
     else:
-        # no K1: K2 reads the segment fill's local
-        metaT[2] = segments.expand_monotone(ex["offsets"], ex["width"],
-                                            cap)[0].float()
         geom, k = ((0, 1, 1, 1),), 1
         tapsT = torch.zeros((1, cap), device=dev)
+        # no K1: K2 computes local, unless stage 3 filled it
+        local_in_kernel = local is None
 
     outT, _ = fragment.fragment_apply(
         records, tapsT, metaT, res, tuple(geom), k,
         has_base, has_normal, has_mr, taps_packed,
+        local_in_kernel=local_in_kernel,
     )
     return Splats(
         pos=outT[0:3].T, color=outT[3:7].T, scale=outT[7:10].T,

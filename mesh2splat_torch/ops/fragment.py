@@ -384,8 +384,13 @@ def texel_rows(records, metaT, *, res, geom, k, n_rows):
 
 
 def fragment_apply_plain(records, tapsT, metaT, *, res, geom, k, has_base,
-                         has_normal, has_mr, taps_packed):
-    """Plain version of K2 on any device: (OUT_W, cap) f32."""
+                         has_normal, has_mr, taps_packed,
+                         local_in_kernel=False):
+    """Plain version of K2 on any device: (OUT_W, cap) f32. With
+    local_in_kernel it first writes ``slot_local`` into row 2 of
+    ``metaT``, as the kernel does."""
+    if local_in_kernel:
+        metaT[2] = slot_local(metaT)
     taps = None
     if has_base or has_normal or has_mr:
         taps = _unpack_taps(tapsT) if taps_packed else tapsT
@@ -397,7 +402,8 @@ def fragment_apply_plain(records, tapsT, metaT, *, res, geom, k, has_base,
 
 class _FragmentApply(torch.autograd.Function):
     """K2 forward (the kernel on a CUDA tensor, the plain version on a CPU
-    tensor); backward = the VJP of ``_fragment_math``."""
+    tensor); backward = the VJP of ``_fragment_math``, from the metaT the
+    forward leaves (with local_in_kernel, its row 2 then holds local)."""
 
     @staticmethod
     def forward(ctx, records, tapsT, metaT, kw):
@@ -414,6 +420,7 @@ class _FragmentApply(torch.autograd.Function):
         records, tapsT, metaT = ctx.saved_tensors
         kw = dict(ctx.kw)
         packed = kw.pop("taps_packed")
+        del kw["local_in_kernel"]
         has_stack = kw["has_base"] or kw["has_normal"] or kw["has_mr"]
         want_taps = has_stack and not packed and ctx.needs_input_grad[1]
         with torch.enable_grad():
@@ -434,13 +441,19 @@ class _FragmentApply(torch.autograd.Function):
 
 
 def fragment_apply(records, tapsT, metaT, res, geom, k,
-                   has_base, has_normal, has_mr, taps_packed=False):
+                   has_base, has_normal, has_mr, taps_packed=False,
+                   local_in_kernel=False):
     """K2: the fragment shader over all slots. records (REC_W, T_pad) f32;
     tapsT (k*4*TAPS_C, cap) f32, or (k*4*TAPS_C/2, cap) int32 bf16 pairs
     when taps_packed, or a dummy (1, cap) when the material has no texture;
-    metaT (4, cap) f32. Returns ((OUT_W, cap) f32, (1, cap) f32 local). A
-    CUDA tensor launches the kernel, a CPU tensor takes the plain version;
-    either way the gradient flows to records and f32 taps."""
+    metaT (4, cap) f32 [tri, row_local, local, live]. local_in_kernel: row 2
+    is not read; K2 computes each slot's local (``slot_local``; rows 0 and
+    1 must never decrease together along the slots, as the conversion
+    allocates them) and writes it there, as the JAX kernel B returns it.
+    Returns ((OUT_W, cap) f32, (1, cap) f32 local). A CUDA tensor launches
+    the kernel, a CPU tensor takes the plain version; either way the
+    gradient flows to records and f32 taps."""
     kw = dict(res=res, geom=geom, k=k, has_base=has_base,
-              has_normal=has_normal, has_mr=has_mr, taps_packed=taps_packed)
+              has_normal=has_normal, has_mr=has_mr, taps_packed=taps_packed,
+              local_in_kernel=local_in_kernel)
     return _FragmentApply.apply(records, tapsT, metaT, kw), metaT[2:3]

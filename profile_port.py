@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where mesh2splat_torch's time goes on a CUDA card: torch.profiler over
-chip_smoke.py's full-size workload (20k-triangle sphere, resolution 512,
-1080p ALBEDO render, 1080p FINAL render with shadows, bench.py's 1024^2
-shadow cubemap, 1080p OVERDRAW render, one fit_splats step over 2 views at
+chip_smoke.py's full-size workload (20k-triangle sphere, resolution 512;
+its conversion with the textures and without them, the latter also as the
+port ran it before K2 computed local (chip_smoke.parent_local_fill); 1080p
+ALBEDO render, 1080p FINAL render with shadows, bench.py's 1024^2 shadow
+cubemap, 1080p OVERDRAW render, one fit_splats step over 2 views at
 1080p), after a warm-up.
 
     python3 profile_port.py [--rows 15]
@@ -15,41 +17,22 @@ time, and the device ops with the most device time. Needs a card.
 from __future__ import annotations
 
 import argparse
-import time
+import contextlib
 
 import chip_smoke as cs
 
 
 def profile(label, fn, rows):
-    import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    fn()
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                  acc_events=True) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    avg = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    kernels = [e for e in avg if e.device_type == cuda]
-    ops = [e for e in avg if e.device_type != cuda]
-    total = sum(dev_us(e) for e in kernels) / 1e3
-    print(f"== {label}: wall {wall:.2f} ms, device busy {total:.2f} ms "
-          f"({100 * total / wall:.1f} % of wall)")
-    for title, group in (("host ops, by the device time they launched", ops),
-                         ("device kernels", kernels)):
+    r = cs.profiled(fn)
+    n_cm, ms_cm = cs.cummax_ops(r)
+    print(f"== {label}: wall {r['wall_ms']:.2f} ms, device busy "
+          f"{r['busy_ms']:.2f} ms ({100 * r['busy_ms'] / r['wall_ms']:.1f} % "
+          f"of wall), cummax {n_cm} launches {ms_cm:.3f} ms")
+    for title, group in (("host ops, by the device time they launched",
+                          r["ops"]), ("device kernels", r["kernels"])):
         print(f"  -- {title}")
-        for e in sorted(group, key=dev_us, reverse=True)[:rows]:
-            print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
-                  f"{e.key[:90]}")
+        for key, count, ms in group[:rows]:
+            print(f"  {ms:9.3f} ms  {count:5d}x  {key[:90]}")
 
 
 def main():
@@ -71,6 +54,17 @@ def main():
     sp = scene.convert(resolution=512, layers=6)
     profile("Scene.convert(512, 6)",
             lambda: scene.convert(resolution=512, layers=6), args.rows)
+    from mesh2splat_torch.ops import fragment as TF
+    from mesh2splat_torch.ops import segments as TSEG
+
+    plain = cs.untextured_scene(cs.synth_primitive(), torch.device("cuda"))
+    for label in ("parent's path", "this tree", "this tree",
+                  "parent's path"):
+        with (cs.parent_local_fill(TF, TSEG) if label == "parent's path"
+              else contextlib.nullcontext()):
+            profile(f"Scene.convert(512, 6) without textures ({label})",
+                    lambda: plain.convert(resolution=512, layers=6),
+                    args.rows)
     profile("Scene.render(1920x1080, ALBEDO)",
             lambda: scene.render(sp, eye=cs.EYE, width=cs.W_PX,
                                  height=cs.H_PX, fov_deg=60.0,

@@ -40,8 +40,8 @@ from mesh2splat_torch.render import composite as TCOMP
 from mesh2splat_torch.render.rasterize import rasterize_dense as t_dense
 from mesh2splat_torch.render.tiled import rasterize_tiled as t_tiled
 from mesh2splat_torch.types import SplatFormat as TSF
-from torch_parity import host, jax_mesh_material, sphere_mesh, \
-    torch_mesh_material
+from torch_parity import assert_rows_close, host, jax_mesh_material, \
+    sphere_mesh, torch_mesh_material
 
 W, H = 256, 64
 CAM = dict(eye=[0, 0, 5], center=[0, 0, 0], up=[0, 1, 0],
@@ -103,16 +103,6 @@ def j_proj(s):
 def t_proj(s):
     return t_project(s, t_cam(), std_dev=1.0, splat_format=TSF.PLY_3DGS,
                      has_pbr=True)
-
-
-def assert_rows_close(got, ref, rel, what=""):
-    """Each row (a field, or a gradient of one splat field) within ``rel``
-    of that row's largest magnitude."""
-    got, ref = np.asarray(got), np.asarray(ref)
-    scale = np.abs(ref).reshape(ref.shape[0], -1).max(axis=1)
-    diff = np.abs(got - ref).reshape(ref.shape[0], -1).max(axis=1)
-    bad = diff > rel * np.maximum(scale, 1e-30)
-    assert not bad.any(), (what, diff[bad], scale[bad])
 
 
 # ---- K4: the composite VJP --------------------------------------------------

@@ -1,6 +1,8 @@
 """Conversion in mesh2splat_torch vs mesh2splat_tpu: the plain versions of
 K1 (texel_rows) and K2 (fragment_apply) on the same records, and convert /
-convert_packed end to end, on small textured meshes made from a seed."""
+convert_packed end to end, on small meshes made from a seed, textured and
+untextured, through the packed slot key and through the large-mesh
+branch."""
 
 import functools
 
@@ -16,6 +18,7 @@ from mesh2splat_tpu.types import Material as JMaterial
 from mesh2splat_torch import state
 from mesh2splat_torch.ops import conversion as TC
 from mesh2splat_torch.ops import fragment as TF
+from mesh2splat_torch.ops import segments as TS
 from mesh2splat_torch.types import Material as TMaterial
 from torch_parity import host, jax_mesh_material, sphere_mesh, \
     torch_mesh_material
@@ -129,3 +132,69 @@ def test_convert_packed_matches():
     assert ts.capacity == js.capacity
     _compare_splats(ts, js)
     assert int(tst["dropped_slots"]) == int(jst["dropped_slots"]) == 0
+
+
+@pytest.mark.parametrize("res", [48, 96])
+def test_convert_untextured_matches(res):
+    """A material without maps (Material.default): no K1, K2 computes each
+    slot's local. Count and valid exact, splats within 2e-5."""
+    mesh, mat = sphere_mesh(500, seed=res + 1)
+    jm, _ = jax_mesh_material(mesh, mat)
+    tm = state.mesh(mesh, "cpu")
+    cfg = dict(resolution=res, layers=6)
+    jcfg = JC.calibrate(jm, *jm.bbox(), JC.ConversionConfig(**cfg))
+    tcfg = TC.calibrate(tm, *tm.bbox(), TC.ConversionConfig(**cfg))
+    assert tcfg.capacity == jcfg.capacity
+    js, jst = JC.convert(jm, JMaterial.default(), *jm.bbox(), jcfg,
+                         return_stats=True)
+    ts, tst = TC.convert(tm, TMaterial.default("cpu"), *tm.bbox(), tcfg,
+                         return_stats=True)
+    assert int(ts.count()) > 1000
+    _compare_splats(ts, js)
+    for key in ("dropped_rows", "dropped_slots", "dropped_window"):
+        assert int(tst[key]) == int(jst[key]) == 0
+
+
+@pytest.mark.parametrize("textured", [True, False])
+def test_large_mesh_branch_matches(textured, monkeypatch):
+    """The branch for meshes whose packed slot key would overflow
+    (t * 4096 >= PACKED_KEY_LIMIT, forced here on a small mesh): it keeps
+    the local that expand_to_slots computes in metaT's row 2, runs no fill
+    of the slot capacity and no K2 scan on top, and gives the same splats
+    as the packed branch (bit for bit) and as the JAX convert."""
+    mesh, mat = sphere_mesh(400, seed=11, tex=32)
+    jm, jmat = jax_mesh_material(mesh, mat)
+    tm, tmat = torch_mesh_material(mesh, mat)
+    if not textured:
+        jmat, tmat = JMaterial.default(), TMaterial.default("cpu")
+    cfg = TC.ConversionConfig(resolution=48, layers=6,
+                              row_capacity_override=5000)
+    packed = TC.convert(tm, tmat, *tm.bbox(), cfg)
+
+    seen, fills = {}, []
+    real_apply, real_fill = TF.fragment_apply, TS.fill_value
+
+    def spy(records, tapsT, metaT, *args, **kw):
+        seen.update(given=metaT.clone(), **kw)
+        return real_apply(records, tapsT, metaT, *args, **kw)
+
+    def counting(offsets, counts, capacity, value):
+        fills.append(capacity)
+        return real_fill(offsets, counts, capacity, value)
+
+    monkeypatch.setattr(TC, "PACKED_KEY_LIMIT", 0)
+    monkeypatch.setattr(TF, "fragment_apply", spy)
+    monkeypatch.setattr(TS, "fill_value", counting)
+    large = TC.convert(tm, tmat, *tm.bbox(), cfg)
+    assert seen["local_in_kernel"] is False
+    assert fills == [cfg.row_capacity] * 2   # the row expansion only
+    ex = TC._expand_slots(tm, *tm.bbox(), cfg)
+    assert ex["local"] is not None
+    if not textured:   # K1 overwrites row 2 with the same values
+        np.testing.assert_array_equal(seen["given"][2].numpy(),
+                                      ex["local"].numpy().astype(np.float32))
+    for f in SPLAT_FIELDS + ("valid",):
+        assert torch.equal(getattr(large, f), getattr(packed, f)), f
+    _compare_splats(large, JC.convert(
+        jm, jmat, *jm.bbox(), JC.ConversionConfig(
+            resolution=48, layers=6, row_capacity_override=5000)))

@@ -15,6 +15,7 @@ from mesh2splat_torch.ops import fragment as TF
 from mesh2splat_torch.ops import segments as TS
 from mesh2splat_torch.render import binning as TB
 from mesh2splat_torch.render import composite as TCOMP
+from mesh2splat_torch.types import Material as TMaterial
 from mesh2splat_torch.types import make_camera
 from torch_parity import (SLOT_CASES, SLOT_GEOM, adversarial_slots,
                           slot_records, sphere_mesh)
@@ -132,6 +133,98 @@ def test_texel_rows_wrapper_rejects(cuda):
         with pytest.raises(ValueError, match="power of two"):
             kernels.texel_rows(rec, m, **{**kw, "k": k})
     assert kernels.launches == before
+    torch.cuda.synchronize()
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit, any NaN equal to any NaN."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (a.isnan() & b.isnan())).all())
+
+
+def _k2_local_runs(rec, taps, meta, kw):
+    """K2 in local mode, its plain version and K2 again, each on its own
+    CUDA copy of meta (row 2 zero): [(out, meta after), ...]."""
+    runs = []
+    for fn in (kernels.fragment_apply, TF.fragment_apply_plain,
+               kernels.fragment_apply):
+        m = meta.clone()
+        m[2] = 0
+        runs.append((fn(rec, taps, m, **kw, local_in_kernel=True), m))
+    return runs
+
+
+# 3,001 slots end inside a warp; 3,000,000 put a segment of a million slots
+# behind the warps that search it
+@pytest.mark.parametrize("case,cap", [
+    (case, cap) for case in SLOT_CASES for cap in (3001, 12288)]
+    + [("single", 3_000_000)])
+def test_kernel_k2_local_adversarial(cuda, case, cap):
+    """K2 in local mode on hand-built slot tables with row 2 zero: its 20
+    output rows and the local it writes bit-equal to the plain version's
+    and to a second run's, and local equal to the slot fill's
+    (segments.expand_monotone)."""
+    offsets, widths, meta = adversarial_slots(case, cap, seed=cap)
+    rec = torch.from_numpy(slot_records(int(meta[0].max()) + 1, 4096, seed=6,
+                                        attrs=True)).to(cuda)
+    kw = dict(res=4096, geom=((0, 1, 1, 1),), k=1, has_base=False,
+              has_normal=False, has_mr=False, taps_packed=False)
+    (out_k, m_k), (out_p, m_p), (out_2, m_2) = _k2_local_runs(
+        rec, torch.zeros((1, cap), device=cuda),
+        torch.from_numpy(meta).to(cuda), kw)
+    assert _bits_equal(out_k, out_p) and _bits_equal(out_2, out_k)
+    assert torch.equal(m_k, m_p) and torch.equal(m_2, m_k)
+    fill, _ = TS.expand_monotone(torch.from_numpy(offsets).to(cuda),
+                                 torch.from_numpy(widths).to(cuda), cap)
+    assert torch.equal(m_k[2], fill.float())
+    assert int((out_k[19] > 0).sum()) >= min(1000, cap // 3)   # covered
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_kernel_k2_local_matches_plain(cuda, textured):
+    """K2 in local mode on what a sphere's conversion hands K2 (untextured:
+    the conversion's own call; textured: K2 given K1's inputs, which the
+    conversion does not do but the kernel allows): bit-equal to its plain
+    version and to a second run, and local equal to K1's."""
+    mesh, mat = sphere_mesh(800, seed=1, tex=64)
+    tm, tmat = state.mesh(mesh, cuda), state.material(mat, cuda)
+    if not textured:
+        tmat = TMaterial.default(cuda)
+    seen = {}
+    real = TF.fragment_apply
+
+    def spy(records, tapsT, metaT, *args, **kw):
+        seen.update(records=records, tapsT=tapsT, metaT=metaT.clone(),
+                    args=args, **kw)
+        return real(records, tapsT, metaT, *args, **kw)
+
+    TF.fragment_apply = spy
+    try:
+        before = dict(kernels.launches)
+        TC.convert(tm, tmat, *tm.bbox(), TC.ConversionConfig(128, 6))
+        ran = {n: kernels.launches[n] - before[n] for n in before}
+    finally:
+        TF.fragment_apply = real
+    res, geom, k, hb, hn, hm, packed = seen["args"]
+    assert seen["local_in_kernel"] is not textured
+    assert ran["texel_rows"] == int(textured)
+    assert ran["fragment_apply_local"] == int(not textured)
+    kw = dict(res=res, geom=geom, k=k, has_base=hb, has_normal=hn,
+              has_mr=hm, taps_packed=packed)
+    meta = seen["metaT"]
+    (out_k, m_k), (out_p, m_p), (out_2, m_2) = _k2_local_runs(
+        seen["records"], seen["tapsT"], meta, kw)
+    if textured:   # K1 wrote local before K2 ran
+        assert torch.equal(m_k[2], meta[2])
+    else:
+        m1 = meta.clone()
+        kernels.texel_rows(seen["records"], m1, res=res, geom=SLOT_GEOM, k=4,
+                           n_rows=1 << 20)
+        assert torch.equal(m_k[2], m1[2])
+    assert torch.equal(m_k, m_p) and torch.equal(m_2, m_k)
+    assert _bits_equal(out_k, out_p) and _bits_equal(out_2, out_k)
+    assert int((out_k[19] > 0).sum()) > 10000
     torch.cuda.synchronize()
 
 

@@ -1,12 +1,15 @@
-"""Each slot's index within its texel-row segment (``local``), which K1
-computes and writes into the meta table: the port's plain version
-(``fragment.slot_local``, and ``texel_rows`` given a meta table whose row 2
-is zero) against the JAX package's in-kernel scan ``_local_scan`` (run here
+"""Each slot's index within its texel-row segment (``local``), which K1,
+or K2 in its local mode, computes and writes into the meta table: the
+port's plain versions (``fragment.slot_local``, and ``texel_rows`` or
+``fragment_apply(local_in_kernel=True)`` given a meta table whose row 2 is
+zero) against the JAX package's in-kernel scan ``_local_scan`` (run here
 by a Pallas call in interpret mode over 2048-slot blocks with its SMEM
-carry) and against the JAX segment fill, bit for bit on every slot. The
-slot tables come from ``torch_parity.adversarial_slots``: segments across
-and longer than the JAX kernel's blocks, zero-width producers, triangles
-that own no slot, a single producer and a total clipped at the capacity."""
+carry), against the JAX segment fill, bit for bit on every slot, and K2's
+outputs and record gradient in that mode against the JAX fragment_apply.
+The slot tables come from ``torch_parity.adversarial_slots``: segments
+across and longer than the JAX kernel's blocks, zero-width producers,
+triangles that own no slot, a single producer and a total clipped at the
+capacity."""
 
 import functools
 
@@ -28,8 +31,8 @@ from mesh2splat_torch.ops import fragment as TF
 from mesh2splat_torch.ops import segments as TS
 from mesh2splat_torch.types import Material as TMaterial
 from torch_parity import (SLOT_CASES, SLOT_GEOM, adversarial_slots,
-                          jax_mesh_material, slot_records, sphere_mesh,
-                          torch_mesh_material)
+                          assert_rows_close, jax_mesh_material, slot_records,
+                          sphere_mesh, torch_mesh_material)
 
 CAPS = (10007, 12288)   # not a multiple of 2048 or of a CUDA block; one is
 
@@ -106,41 +109,53 @@ def test_texel_rows_plain_fills_local(case):
         assert (rows.numpy() > 0).sum() > cap // 2   # covered slots
 
 
-@pytest.mark.parametrize("atlas", [None, "bf16"])
+@pytest.mark.parametrize("atlas", [None, "bf16", "untextured"])
 def test_conversion_local_matches_jax_fill(atlas):
-    """On a converted sphere, the meta table K2 receives holds in row 2 the
-    JAX conversion's local (its segment fill on the CPU) on every slot."""
+    """On a converted sphere, the meta table K2 works from holds in row 2
+    the JAX conversion's local (its segment fill on the CPU) on every slot:
+    K1 wrote it before K2 where the material has a texture; without one K2
+    receives row 2 zero, computes local and leaves it there."""
     mesh, mat = sphere_mesh(400, seed=2, tex=32)
     jm, _ = jax_mesh_material(mesh, mat)
     tm, tmat = torch_mesh_material(mesh, mat)
+    if atlas == "untextured":
+        tmat = TMaterial.default("cpu")
     cfg = dict(resolution=48, layers=6)
     seen = {}
     real = TF.fragment_apply
 
     def spy(records, tapsT, metaT, *args, **kw):
-        seen["metaT"] = metaT.clone()
-        return real(records, tapsT, metaT, *args, **kw)
+        seen["given"] = metaT.clone()
+        out = real(records, tapsT, metaT, *args, **kw)
+        seen["left"] = metaT.clone()
+        return out
 
     TF.fragment_apply = spy
     try:
         TC.convert(tm, tmat, *tm.bbox(), TC.ConversionConfig(**cfg),
                    atlas=TC.pack_atlas(tmat, precision=atlas)
-                   if atlas else None)
+                   if atlas == "bf16" else None)
     finally:
         TF.fragment_apply = real
     ex = JC._expand_slots(jm, *jm.bbox(), JC.ConversionConfig(**cfg))
-    meta = seen["metaT"].numpy()
+    meta = seen["left"].numpy()
     np.testing.assert_array_equal(meta[0], np.asarray(ex["tri_id_safe"]))
     np.testing.assert_array_equal(meta[1], np.asarray(ex["s_row_local"]))
     np.testing.assert_array_equal(meta[2], np.asarray(ex["local"]))
+    given = seen["given"].numpy()
+    if atlas == "untextured":
+        assert not given[2].any()
+        np.testing.assert_array_equal(given[[0, 1, 3]], meta[[0, 1, 3]])
+    else:
+        np.testing.assert_array_equal(given, meta)
     assert int(ex["total"]) > 1000
 
 
 @pytest.mark.parametrize("textured", [True, False])
 def test_textured_conversion_runs_one_slot_fill(textured, monkeypatch):
-    """K1 computes local, so the textured conversion fills only the packed
-    (tri, row_local) over the slots; the untextured one runs no K1 and
-    keeps the local fill too (expand_monotone: two fills)."""
+    """A kernel computes local (K1 where the material has a texture, K2
+    where it has none), so either conversion fills only the packed
+    (tri, row_local) over the slots: one fill over the slot capacity."""
     mesh, mat = sphere_mesh(300, seed=4, tex=32)
     tm, tmat = torch_mesh_material(mesh, mat)
     if not textured:
@@ -158,9 +173,101 @@ def test_textured_conversion_runs_one_slot_fill(textured, monkeypatch):
     TC.convert(tm, tmat, *tm.bbox(), cfg)
     slot_fills = [c for c in calls if c == cfg.capacity]
     row_fills = [c for c in calls if c == cfg.row_capacity]
-    assert len(slot_fills) == (1 if textured else 2)
+    assert len(slot_fills) == 1
     assert len(row_fills) == 2   # the row expansion, unchanged
     assert len(calls) == len(slot_fills) + len(row_fills)
+
+
+def _local_mode_inputs(case):
+    """(records, tapsT, metaT, K2 arguments, JAX local) of K2 in local mode:
+    the ones a converted sphere hands it, textured or not, or an
+    adversarial slot table with slot_records' geometry and random
+    attributes (no texture). metaT's row 2 is zero."""
+    if case in ("textured", "untextured"):
+        mesh, mat = sphere_mesh(400, seed=8, tex=32)
+        tm, tmat = torch_mesh_material(mesh, mat)
+        if case == "untextured":
+            tmat = TMaterial.default("cpu")
+        seen = {}
+        real = TF.fragment_apply
+
+        def spy(records, tapsT, metaT, *args, **kw):
+            seen.update(records=records, tapsT=tapsT, args=args)
+            return real(records, tapsT, metaT, *args, **kw)
+
+        TF.fragment_apply = spy
+        try:
+            TC.convert(tm, tmat, *tm.bbox(), TC.ConversionConfig(48, 6))
+        finally:
+            TF.fragment_apply = real
+        jm, _ = jax_mesh_material(mesh, mat)
+        ex = JC._expand_slots(jm, *jm.bbox(), JC.ConversionConfig(48, 6))
+        meta = np.stack([np.asarray(ex[n]) for n in (
+            "tri_id_safe", "s_row_local", "local", "in_budget")]).astype(
+                np.float32)
+        local = meta[2].copy()
+        meta[2] = 0
+        return (seen["records"].numpy(), seen["tapsT"].numpy(), meta,
+                seen["args"][:7], local)
+    offsets, widths, meta = adversarial_slots(case, CAPS[0], seed=5)
+    n_tri = int(meta[0].max()) + 1
+    # segments up to 4096 slots covered
+    rec = slot_records(n_tri, 4096, seed=6, attrs=True)
+    fill, _ = JS.expand_monotone(jnp.asarray(offsets), jnp.asarray(widths),
+                                 CAPS[0])
+    taps = np.zeros((1, CAPS[0]), np.float32)
+    args = (4096, ((0, 1, 1, 1),), 1, False, False, False, False)
+    return rec, taps, meta, args, np.asarray(fill).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["untextured", "textured", "mixed", "long",
+                                  "clipped"])
+def test_fragment_apply_local_matches_jax(case):
+    """K2's plain version in local mode, given row 2 zero, against the JAX
+    fragment_apply given the JAX conversion's local (its segment fill on
+    the CPU): loc and valid exactly, and bit for bit the port's own K2
+    given that local; the other outputs within K2's 2e-5 of JAX on the
+    live slots (a jit of fragment_apply alone fuses other multiply-adds
+    than the JAX conversion, whose choice the port repeats), and the record
+    gradient within the fragment VJP's tolerance."""
+    rec, taps, meta, args, local = _local_mode_inputs(case)
+    res, geom, k, hb, hn, hm, packed = args
+    assert not meta[2].any()
+    jmeta = meta.copy()
+    jmeta[2] = local
+
+    def j_fn(r):
+        return JF.fragment_apply(r, jnp.asarray(taps), jnp.asarray(jmeta),
+                                 res, geom, k, hb, hn, hm, 0, False, packed)
+
+    (ref, ref_loc), vjp = jax.vjp(j_fn, jnp.asarray(rec))
+    ref = np.asarray(ref)
+    metaT = torch.from_numpy(meta.copy())
+    trec = torch.from_numpy(rec).requires_grad_(True)
+    out, loc = TF.fragment_apply(trec, torch.from_numpy(taps), metaT, *args,
+                                 local_in_kernel=True)
+    assert loc.shape == (1, meta.shape[1])
+    np.testing.assert_array_equal(loc.numpy(), np.asarray(ref_loc))
+    np.testing.assert_array_equal(metaT.numpy(), jmeta)
+    given, _ = TF.fragment_apply(torch.from_numpy(rec),
+                                 torch.from_numpy(taps),
+                                 torch.from_numpy(jmeta), *args)
+    o = out.detach().numpy()
+    np.testing.assert_array_equal(o.view(np.int32),
+                                  given.numpy().view(np.int32))
+    np.testing.assert_array_equal(o[19], ref[19])
+    live = ref[19] > 0
+    assert live.sum() > 1000
+    assert np.abs(o[:19, live] - ref[:19, live]).max() <= 2e-5
+
+    g = (np.random.default_rng(3).normal(size=o.shape) * live).astype(
+        np.float32)
+    g[19] = 0.0
+    (ref_rec,) = vjp((jnp.asarray(g), jnp.zeros_like(ref_loc)))
+    out.backward(torch.from_numpy(g))
+    ref_rec = np.asarray(ref_rec)
+    assert np.abs(ref_rec).max() > 0
+    assert_rows_close(trec.grad.numpy()[:58], ref_rec[:58], 1e-3, "records")
 
 
 @pytest.mark.parametrize("k", [0, 3, 6, 12])

@@ -19,6 +19,16 @@ def host(obj) -> dict:
     return out
 
 
+def assert_rows_close(got, ref, rel, what=""):
+    """Each row (a field, or a gradient of one splat field) within ``rel``
+    of that row's largest magnitude."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    scale = np.abs(ref).reshape(ref.shape[0], -1).max(axis=1)
+    diff = np.abs(got - ref).reshape(ref.shape[0], -1).max(axis=1)
+    bad = diff > rel * np.maximum(scale, 1e-30)
+    assert not bad.any(), (what, diff[bad], scale[bad])
+
+
 def sphere_mesh(n_tri=600, seed=0, tex=32, uv_scale=0.25):
     """A perturbed lat-long sphere (bench.py's workload shape at small size)
     with base-colour, normal and metallic-roughness textures, as numpy."""
@@ -153,11 +163,12 @@ def adversarial_slots(case, cap, seed=0):
 SLOT_GEOM = ((0, 64, 64, 4096), (1024, 32, 32, 1024))  # (off, h, w, hw_pad)
 
 
-def slot_records(n_tri, res, seed=0):
+def slot_records(n_tri, res, seed=0, attrs=False):
     """A (64, T_pad) f32 record table for K1 whose triangles cover the
     whole ortho-UV square (texel box 0..res-1 in x and y), so that most
     slots of slot_meta are covered; random texture uv, mip level 0 or 1 of
-    SLOT_GEOM, material 0."""
+    SLOT_GEOM, material 0. attrs: random position, normal, tangent, quat,
+    scale and colour-factor rows too, for K2."""
     rng = np.random.default_rng(seed)
     t_pad = -(-(n_tri + 128) // 128) * 128
     rec = np.zeros((64, t_pad), np.float32)
@@ -166,4 +177,6 @@ def slot_records(n_tri, res, seed=0):
     rec[8, :n_tri] = res                     # tw (tx0 = ty0 = 0)
     rec[9:15, :n_tri] = rng.uniform(-0.5, 1.5, (6, n_tri))
     rec[16, :n_tri] = rng.integers(0, 2, n_tri)
+    if attrs:
+        rec[17:58, :n_tri] = rng.uniform(-1, 1, (41, n_tri))
     return rec
