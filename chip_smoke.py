@@ -10,9 +10,10 @@ without a card:
      per source, all at once), with -Xptxas -v's register/spill lines;
   3. the main path at full size, through the user's entry points: a
      20k-triangle textured sphere (bench.py's workload, built in numpy from
-     seed 0) as a Scene on cuda -> convert(512, 6) -> export_ply in all three
-     formats -> 1920x1080 renders in ALBEDO and FINAL -> an albedo-only tiled
-     raster; then the untextured path: the same sphere with
+     seed 0) as a Scene on cuda -> convert(512, 6) (K2 reads the tap atlas
+     by K1's rows: the conversion may call no index_select) -> export_ply
+     in all three formats -> 1920x1080 renders in ALBEDO and FINAL -> an
+     albedo-only tiled raster; then the untextured path: the same sphere with
      Material.default() (no maps) -> convert(512, 6), where no K1 runs and
      K2 computes each slot's local (one fill over the slots, the packed
      key) -> a 1920x1080 ALBEDO render -> export_ply; then the training
@@ -35,8 +36,10 @@ without a card:
      (its history and splats equal to the undistributed fit's, both with
      deterministic algorithms); the C++ codec must have built;
   4. each kernel against its plain PyTorch version on the same CUDA tensors,
-     at the shapes of phase 3 (K1, and K2 in its local mode, also the local
-     each writes into its meta table, against the torch slot fill too; K3
+     at the shapes of phase 3 (K2 reading the atlas by K1's rows, and the
+     rows-less K2 on the gathered taps, bit for bit; K1, and K2 in its
+     local mode, also the local each writes into its meta table, against
+     the torch slot fill too; K3
      also the pairs each tile walked; K4's state pass its per-segment
      states; K1, K2 in local mode, K4, K5 and K6 a second run bit-equal to
      the first), with the tile histograms of the inputs of K3-K6;
@@ -52,8 +55,13 @@ without a card:
      step's time, the render paths' times, the CLI commands' times and
      the PLY export through the C++ codec against the numpy writers; the
      untextured conversion's host time, and its device time and cummax
-     launches from torch.profiler, in turns with the parent's path for it
-     (the torch local fill, then K2 reading it).
+     launches from torch.profiler, in turns with the path before K2
+     computed local (the torch local fill, then K2 reading it); the textured
+     conversion's host time, device time, index_select calls and peak
+     memory, and a fit_textures gradient's peak memory, in turns with the
+     path before K2 read the atlas itself (the taps gathered by
+     index_select, then K2 reading them); K2's row also holds that path's
+     gather and K2 times.
 It ends with a JSON line of kernel numbers, the card's name and power limit,
 and {"ok": true, "device": {...}} as the last line.
 """
@@ -311,16 +319,90 @@ def parent_local_fill(TF, TSEG):
         seen[capacity] = (offsets, counts, capacity)
         return real_fill(offsets, counts, capacity, value)
 
-    def apply(records, tapsT, metaT, *args, local_in_kernel=False):
+    def apply(records, tapsT, metaT, *args, local_in_kernel=False, **kw):
         if local_in_kernel:
             metaT[2] = TSEG.expand_monotone(*seen[metaT.shape[1]])[0].float()
-        return real_apply(records, tapsT, metaT, *args)
+        return real_apply(records, tapsT, metaT, *args, **kw)
 
     TF.fragment_apply, TSEG.fill_value = apply, fill
     try:
         yield
     finally:
         TF.fragment_apply, TSEG.fill_value = real_apply, real_fill
+
+
+@contextlib.contextmanager
+def parent_tap_gather(TF):
+    """The textured conversion as the port ran it before K2 read the tap
+    atlas itself, for a comparison within one run: where the conversion
+    hands K2 the atlas and K1's rows, the atlas is made field-major (the
+    transpose the atlas build then ended with; the build now leaves it
+    row-major) and the taps are gathered from it (index_select, one column
+    a slot), and K2 reads them (under autograd the gathered taps are what
+    K2's Function saves, as it did)."""
+    real = TF.fragment_apply
+
+    def apply(records, tapsT, metaT, *args, rows=None, **kw):
+        if rows is not None:
+            tapsT = tapsT.contiguous().index_select(1, rows)
+        return real(records, tapsT, metaT, *args, **kw)
+
+    TF.fragment_apply = apply
+    try:
+        yield
+    finally:
+        TF.fragment_apply = real
+
+
+def index_selects(prof):
+    """Calls of aten::index_select in a profiled() result."""
+    return sum(r[1] for r in prof["ops"] if r[0] == "aten::index_select")
+
+
+def tap_bytes(torch, TF, rec, atlas, meta, rows, kw):
+    """The atlas bytes K2 must read on these inputs: once each distinct
+    (column, sub-texel group) a slot reads, 40 f32 (160 B); packed, once
+    each distinct run of int32 words that holds a group (k = 1: 20 words
+    hold both halves of its one group; k >= 2: 40 words hold two groups)."""
+    k = kw["k"]
+    g = TF._gather_rec(rec, meta)
+    su = TF._slot_uv(g, meta, kw["res"])
+    sub = TF._tap_index(su["uu"], su["vv"], g[TF.REC["mid"]],
+                        g[TF.REC["lod"]], kw["geom"], k)[1]
+    del g, su
+    j = torch.where((sub > 0) & (sub < k), sub, 0).long()
+    if not kw["taps_packed"]:
+        return int(torch.unique(rows.long() * k + j).numel()) * 160
+    if k == 1:
+        return int(torch.unique(rows).numel()) * 80
+    blocks = k // 2          # runs of 40 words a column
+    return int(torch.unique(rows.long() * blocks + j % blocks).numel()) * 160
+
+
+class OpCount:
+    """Counts the calls of the named torch functions and Tensor methods
+    (a TorchFunctionMode) while a block runs."""
+
+    def __init__(self, *names):
+        from torch.overrides import TorchFunctionMode
+
+        counts = self.counts = dict.fromkeys(names, 0)
+
+        class Mode(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                name = getattr(func, "__name__", "")
+                if name in counts:
+                    counts[name] += 1
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
 
 
 def cummax_ops(prof):
@@ -602,13 +684,19 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
              "composite_bwd_state_albedo": 2 * TEX_STEPS},
             renders=2 * TEX_STEPS)
         tex_s = time.perf_counter() - t0
-        tex = grey.base_color.clone().requires_grad_(True)
-        sp_t = TC.convert(mesh, dataclasses.replace(grey, base_color=tex),
-                          lo, hi, cfg)
-        loss = torch.mean((TFIT.render_rgb(
-            sp_t, tcams[0], TEX_PX, TEX_PX, std_dev=mult,
-            splat_format=SplatFormat.MESH2SPLAT) - tex_targets[0]) ** 2)
-        (g_tex,) = torch.autograd.grad(loss, [tex])
+
+        def tex_grad():
+            """One fit_textures gradient: conversion from the texture, the
+            render of one view, the backward to the texture."""
+            tex = grey.base_color.clone().requires_grad_(True)
+            sp_t = TC.convert(mesh, dataclasses.replace(grey, base_color=tex),
+                              lo, hi, cfg)
+            loss = torch.mean((TFIT.render_rgb(
+                sp_t, tcams[0], TEX_PX, TEX_PX, std_dev=mult,
+                splat_format=SplatFormat.MESH2SPLAT) - tex_targets[0]) ** 2)
+            return torch.autograd.grad(loss, [tex])[0]
+
+        g_tex = tex_grad()
         check([int(d) for d in watch.take()] == [0],
               "fit_textures gradient: dropped pairs")
         log(f"fit_textures: {cfg.capacity} slots, 2 views at "
@@ -685,7 +773,8 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
                  f"{fb_ms:.2f} ms, bwd/fwd {(fb_ms - fwd_ms) / fwd_ms:.2f}, "
                  f"fwd+bwd / fwd {fb_ms / fwd_ms:.2f}")
     return {"paths": paths, "capture": cap, "times": times,
-            "fit": (start, cams, targets, fit_cfg, hist)}
+            "fit": (start, cams, targets, fit_cfg, hist),
+            "tex_grad": tex_grad}
 
 
 def render_paths(torch, kernels, scene, sp, img_albedo, img_final, dev):
@@ -1179,7 +1268,8 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with Capture(kernels) as cap:
-        with Calls(TSEG, "fill_value") as fills:
+        with Calls(TSEG, "fill_value") as fills, \
+                OpCount("index_select") as conv_ops:
             sp, stats = scene.convert(resolution=512, layers=6,
                                       return_stats=True)
         count = int(sp.count())
@@ -1226,6 +1316,13 @@ def main():
     for name in MAIN_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
+    k2_rows = cap.seen["fragment_apply"][1].get("rows")
+    log(f"the textured conversion: {conv_ops.counts['index_select']} "
+        f"index_select calls; K2 given K1's rows: {k2_rows is not None}, "
+        f"taps {tuple(cap.seen['fragment_apply'][0][1].shape)}")
+    check(conv_ops.counts["index_select"] == 0 and k2_rows is not None,
+          "the textured conversion gathers its taps: K2 should read the "
+          "atlas by K1's rows")
     paths = {"main": launches}
     unt = untextured_path(torch, kernels, TSEG, prim, sp, dev)
     paths["untextured"] = unt["launches"]
@@ -1288,19 +1385,32 @@ def main():
           "K1 differs from its plain version")
     del meta_p, meta_k2, rows_k2
 
-    (rec, taps, meta), kw2 = cap.seen["fragment_apply"]
-    out_k = kernels.fragment_apply(rec, taps, meta, **kw2)
-    out_p = TF.fragment_apply_plain(rec, taps, meta, **kw2)
-    valid_eq = bool(torch.equal(out_k[19], out_p[19]))
+    # K2 as the main path calls it (the atlas and K1's rows), a second run,
+    # and the rows-less K2 on the gathered taps (the parent's path's call),
+    # against the plain version (index_select, then the plain math)
+    (rec, atlas, meta), kw2 = cap.seen["fragment_apply"]
+    kw2 = dict(kw2)
+    rows2 = kw2.pop("rows")
+    gathered = atlas.index_select(1, rows2)
+    out_k = kernels.fragment_apply(rec, atlas, meta, rows=rows2, **kw2)
+    out_p = TF.fragment_apply_plain(rec, atlas, meta, rows=rows2, **kw2)
+    out_2 = kernels.fragment_apply(rec, atlas, meta, rows=rows2, **kw2)
+    out_g = kernels.fragment_apply(rec, gathered, meta, **kw2)
+    out_gp = TF.fragment_apply_plain(rec, gathered, meta, **kw2)
     live = out_p[19] > 0
-    errs["fragment_apply"] = float((out_k[:19, live] - out_p[:19, live])
-                                   .abs().max())
-    all_slots = float((out_k[:19] - out_p[:19]).abs().max())
-    log(f"K2 fragment_apply: taps {tuple(taps.shape)} {taps.dtype}, valid "
-        f"equal {valid_eq}, max |diff| {errs['fragment_apply']:.3g} on the "
-        f"{int(live.sum())} live slots ({all_slots:.3g} over all slots)")
-    check(valid_eq and errs["fragment_apply"] <= 2e-5,
-          "K2 differs from its plain version")
+    errs["fragment_apply"] = float((out_k - out_p).abs().nan_to_num().max())
+    same = [bits_equal(out_k, out_p), bits_equal(out_2, out_k),
+            bits_equal(out_g, out_gp), bits_equal(out_g, out_k)]
+    log(f"K2 fragment_apply: atlas {tuple(atlas.shape)} {atlas.dtype} read "
+        f"by K1's rows ({rows2.shape[0]} slots, "
+        f"{int(torch.unique(rows2).numel())} distinct columns): bit-equal to "
+        f"the plain version {same[0]} (max |diff| "
+        f"{errs['fragment_apply']:.3g}; {int(live.sum())} live slots), a "
+        f"second run {same[1]}; the rows-less K2 on the gathered taps "
+        f"{tuple(gathered.shape)} bit-equal to its plain version {same[2]} "
+        f"and to the gathering K2 {same[3]}")
+    check(all(same), "K2 differs from its plain version or itself")
+    del out_2, out_g, out_gp, gathered
 
     # K2 in local mode, on the untextured path's inputs: kernel, plain and
     # kernel again on clones with row 2 zeroed; local also against the
@@ -1527,15 +1637,85 @@ def main():
           "the untextured conversion should run one cummax fewer than the "
           "parent's path")
 
+    # the textured conversion, and the parent's path for it (the taps
+    # gathered by index_select, then K2 reading them), in turns: parent,
+    # change, change, parent; device busy, index_select calls, host ms,
+    # and the peak memory of one call (absolute, and above what was
+    # allocated before it)
+    def tconv():
+        return scene.convert(resolution=512, layers=6)
+
+    def peak_of(fn):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = fn()
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        return out, peak / 2**30, (peak - held) / 2**30
+
+    with parent_tap_gather(TF):
+        sp_parent = tconv()
+    sp_now = tconv()
+    check(all(bits_equal(getattr(sp_now, f.name).float(),
+                         getattr(sp_parent, f.name).float())
+              for f in dataclasses.fields(sp_now)),
+          "the parent's textured path gives other splats")
+    del sp_parent, sp_now
+    tex_prof = {"parent": [], "change": []}
+    for label in ("parent", "change", "change", "parent"):
+        with (parent_tap_gather(TF) if label == "parent"
+              else contextlib.nullcontext()):
+            r = profiled(tconv)
+            r["host_ms"] = host_ms(tconv, 10)
+            _, r["peak_gib"], r["peak_above_gib"] = peak_of(tconv)
+        tex_prof[label].append(r)
+        log(f"textured conversion ({label}'s path): host {r['host_ms']:.2f} "
+            f"ms a call (10 calls); profiled call: wall {r['wall_ms']:.2f} "
+            f"ms, device busy {r['busy_ms']:.3f} ms "
+            f"({100 * r['busy_ms'] / r['wall_ms']:.1f} % of wall), "
+            f"index_select {index_selects(r)} calls; peak memory "
+            f"{r['peak_gib']:.3f} GiB ({r['peak_above_gib']:.3f} GiB above "
+            f"the memory held before the call); top kernels "
+            f"{[(k[:48], n, round(ms, 3)) for k, n, ms in r['kernels'][:6]]}"
+            f" ({smi})")
+    check(all(index_selects(r) == 0 for r in tex_prof["change"])
+          and all(index_selects(r) == 1 for r in tex_prof["parent"]),
+          "the textured conversion should run no index_select, the "
+          "parent's path one")
+    # one fit_textures gradient, the same pair in turns: peak memory and
+    # host ms; the texture gradients agree (index_add_'s atomics may order
+    # their sums differently)
+    grads = {}
+    for label in ("parent", "change", "change", "parent"):
+        with (parent_tap_gather(TF) if label == "parent"
+              else contextlib.nullcontext()):
+            g, peak, above = peak_of(train["tex_grad"])
+            ms = host_ms(train["tex_grad"], 3)
+        grads.setdefault(label, g)
+        log(f"fit_textures gradient ({label}'s path): peak memory "
+            f"{peak:.3f} GiB ({above:.3f} GiB above the memory held before "
+            f"it), host {ms:.2f} ms a call (3 calls) ({smi})")
+    g_diff = float((grads["change"] - grads["parent"]).abs().max())
+    g_max = float(grads["parent"].abs().max())
+    log(f"fit_textures gradient: change vs parent's path max |diff| "
+        f"{g_diff:.3g} of max |g| {g_max:.3g}")
+    check(g_diff <= 1e-4 * g_max, "the texture gradient differs from the "
+          "parent's path's")
+    del grads
+
     n_tri = prim.tri_pos.shape[0]
     (rec, meta), kw1 = cap.seen["texel_rows"]
-    (rec2, taps, meta2), kw2 = cap.seen["fragment_apply"]
+    (rec2, atlas2, meta2), kw2 = cap.seen["fragment_apply"]
+    kw2 = dict(kw2)
+    rows2 = kw2.pop("rows")
     cap_slots = meta.shape[1]
     resources = ptxas_resources(report)
     rows = []
 
     def entry(name, source, replaces, ms, plain_ms, nbytes, nops, err,
-              path="main", rel_err=None, walk_ops=None, fullest_ms=None):
+              path="main", rel_err=None, walk_ops=None, fullest_ms=None,
+              **extra):
         """One kernel's row. Its bound: the larger of the bytes it must move
         and, per kind of operation, the f32 operations the function needs
         on this run's data (per pair, and per (pair, pixel) the pair
@@ -1566,7 +1746,7 @@ def main():
             walk_ms=walk, fullest_tile_ms=fullest_ms, registers=regs,
             spill_bytes=spill, static_smem_bytes=smem,
             resident_warps_per_sm=warps,
-            library_ms=None))
+            library_ms=None, **extra))
 
     # K1 reads meta rows 0, 1, 3 and writes the rows and local (row 2)
     entry("texel_rows", "mesh2splat_torch/kernels/csrc/texel_rows.cu",
@@ -1575,15 +1755,39 @@ def main():
           event_ms(lambda: TF.texel_rows_plain(rec, meta, **kw1), 20),
           24 * n_tri * 4 + 3 * cap_slots * 4 + 2 * cap_slots * 4,
           cap_slots * 150, errs["texel_rows"])
+    # K2 reads the records, the atlas groups its slots use (tap_bytes),
+    # K1's rows and 4 meta rows, and writes 20 rows. Beside it the parent's
+    # path: the index_select that gathers the taps, and K2 reading the
+    # gathered taps (as the parent's K2 did; this tree's kernel, rows-less),
+    # whose bound counted every gathered tap.
+    atlas_fm = atlas2.contiguous()    # the parent's field-major atlas
+    gathered = atlas_fm.index_select(1, rows2)
+    t_bytes = tap_bytes(torch, TF, rec2, atlas2, meta2, rows2, kw2)
+    gather_ms = event_ms(lambda: atlas_fm.index_select(1, rows2), 20)
+    rowsless_ms = event_ms(lambda: kernels.fragment_apply(
+        rec2, gathered, meta2, **kw2), 20)
+    rowsless_bound = (58 * n_tri * 4 + gathered.numel() * 4
+                      + 4 * cap_slots * 4 + 20 * cap_slots * 4
+                      ) / HBM_BYTES_PER_S * 1e3
+    log(f"K2's atlas bytes: {t_bytes} (distinct column groups read; whole "
+        f"distinct columns {int(torch.unique(rows2).numel())} x "
+        f"{atlas2.shape[0] * 4} B = "
+        f"{int(torch.unique(rows2).numel()) * atlas2.shape[0] * 4}); the "
+        f"gathered taps {gathered.numel() * 4} B; the parent's path: "
+        f"index_select {gather_ms:.4f} ms, K2 on the gathered taps "
+        f"{rowsless_ms:.4f} ms (bound {rowsless_bound:.4f} ms) ({smi})")
+    del gathered, atlas_fm
     entry("fragment_apply", "mesh2splat_torch/kernels/csrc/fragment.cu",
           "mesh2splat_tpu/ops/fragment.py:674",
-          event_ms(lambda: kernels.fragment_apply(rec2, taps, meta2, **kw2),
-                   20),
-          event_ms(lambda: TF.fragment_apply_plain(rec2, taps, meta2, **kw2),
-                   20),
-          58 * n_tri * 4 + taps.numel() * 4 + 4 * cap_slots * 4
+          event_ms(lambda: kernels.fragment_apply(
+              rec2, atlas2, meta2, rows=rows2, **kw2), 20),
+          event_ms(lambda: TF.fragment_apply_plain(
+              rec2, atlas2, meta2, rows=rows2, **kw2), 20),
+          58 * n_tri * 4 + t_bytes + cap_slots * 4 + 4 * cap_slots * 4
           + 20 * cap_slots * 4,
-          cap_slots * 400, errs["fragment_apply"])
+          cap_slots * 400, errs["fragment_apply"],
+          parent_path_gather_ms=gather_ms, parent_path_k2_ms=rowsless_ms,
+          parent_path_k2_bound_ms=rowsless_bound)
     # K2 in local mode on the untextured path: reads meta rows 0, 1, 3 and
     # the records, writes its 20 rows and local (row 2); no taps
     cap_u = meta_u.shape[1]

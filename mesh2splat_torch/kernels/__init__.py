@@ -70,8 +70,8 @@ _SIGNATURES = {
     "texel_rows": ("m2s_texel_rows",
                    [_P, _L, _P, _L, _I, _Geom, _I, _I, _P, _P]),
     "fragment": ("m2s_fragment_apply",
-                 [_P, _L, _P, _P, _L, _I, _Geom, _I, _I, _I, _I, _I, _I, _P,
-                  _P]),
+                 [_P, _L, _P, _P, _L, _I, _I, _P, _L, _I, _Geom, _I, _I, _I,
+                  _I, _I, _I, _P, _P]),
     "composite": ("m2s_composite_forward",
                   [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P]),
     "composite_bwd": ("m2s_composite_backward",
@@ -170,33 +170,58 @@ def texel_rows(records, metaT, *, res, geom, k, n_rows):
 
 
 def fragment_apply(records, tapsT, metaT, *, res, geom, k, has_base,
-                   has_normal, has_mr, taps_packed, local_in_kernel=False):
-    """K2 forward: (OUT_W=20, cap) f32 splat rows. tapsT is (k*40, cap) f32,
-    (k*20, cap) int32 bf16 pairs when taps_packed, or ignored when the
-    material has no texture. local_in_kernel: compute each slot's local
-    from metaT rows 0-1 (as K1 does: the (tri, row_local) keys must never
-    decrease along the slots), write it into row 2 of metaT, which is then
-    not read, and use it; fewer than 2^30 slots."""
+                   has_normal, has_mr, taps_packed, local_in_kernel=False,
+                   rows=None):
+    """K2 forward: (OUT_W=20, cap) f32 splat rows. tapsT holds the taps, one
+    column a texel: k*40 f32 fields, or k*20 int32 bf16 pairs when
+    taps_packed; it is ignored when the material has no texture. Without
+    rows it is (F, cap), slot i's taps in column i (gathered by the
+    caller); with rows, a (cap,) int32 tensor of columns in [0, n_cols)
+    (K1's texel_rows), it is the tap atlas (F, n_cols) and slot i reads
+    column rows[i], of it only its sub-texel's 40 fields. tapsT may be
+    contiguous (field-major) or the transpose of a contiguous (n_cols, F)
+    tensor (row-major, 16-byte aligned); the kernel reads either.
+    local_in_kernel: compute each slot's local from metaT rows 0-1 (as K1
+    does: the (tri, row_local) keys must never decrease along the slots),
+    write it into row 2 of metaT, which is then not read, and use it.
+    Fewer than 2^30 slots."""
     _check(records, "records", torch.float32, 2, rows=REC_W)
     _check(metaT, "metaT", torch.float32, 2, records.device, rows=4)
     cap = metaT.shape[1]
-    if local_in_kernel and cap >= 1 << 30:
-        raise ValueError(f"metaT: {cap} slots, K2 computes local for fewer "
-                         "than 2^30")
+    if cap >= 1 << 30:
+        raise ValueError(f"metaT: {cap} slots, K2 takes fewer than 2^30")
     has_stack = has_base or has_normal or has_mr
+    ld, n_cols, row_major = 0, 0, False
     if has_stack:
-        rows = k * 4 * 10 // (2 if taps_packed else 1)
-        _check(tapsT, "tapsT", torch.int32 if taps_packed else torch.float32,
-               2, records.device, rows=rows)
-        if tapsT.shape[1] != cap:
-            raise ValueError(f"tapsT has {tapsT.shape[1]} slots, metaT {cap}")
+        n_fields = k * 4 * 10 // (2 if taps_packed else 1)
+        dtype = torch.int32 if taps_packed else torch.float32
+        row_major = (tapsT.dim() == 2 and not tapsT.is_contiguous()
+                     and tapsT.T.is_contiguous())
+        _check(tapsT.T if row_major else tapsT, "tapsT", dtype, 2,
+               records.device)
+        if tapsT.shape[0] != n_fields:
+            raise ValueError(f"tapsT: shape {tuple(tapsT.shape)} is not "
+                             f"({n_fields}, ...)")
+        if row_major and tapsT.data_ptr() % 16:
+            raise ValueError("a row-major tapsT must start on a 16-byte "
+                             "boundary")
+        n_cols = tapsT.shape[1]
+        ld = n_fields if row_major else n_cols
+        if rows is None and n_cols != cap:
+            raise ValueError(f"tapsT has {n_cols} slots, metaT {cap}")
+        if rows is not None:
+            _check(rows, "rows", torch.int32, 1, records.device, rows=cap)
+            if n_cols >= 1 << 31:
+                raise ValueError(f"tapsT: {n_cols} columns, K2 takes fewer "
+                                 "than 2^31")
     out = torch.empty((20, cap), dtype=torch.float32, device=records.device)
     err = _fn("fragment")(
         records.data_ptr(), records.shape[1],
-        tapsT.data_ptr() if has_stack else None, metaT.data_ptr(), cap, res,
-        _geom(geom), k, int(has_base), int(has_normal), int(has_mr),
-        int(taps_packed), int(local_in_kernel), out.data_ptr(),
-        _stream(records.device))
+        tapsT.data_ptr() if has_stack else None,
+        rows.data_ptr() if has_stack and rows is not None else None, ld,
+        n_cols, int(row_major), metaT.data_ptr(), cap, res, _geom(geom), k,
+        int(has_base), int(has_normal), int(has_mr), int(taps_packed),
+        int(local_in_kernel), out.data_ptr(), _stream(records.device))
     _raise_on(err, "fragment_apply")
     launches["fragment_apply_local" if local_in_kernel
              else "fragment_apply"] += 1

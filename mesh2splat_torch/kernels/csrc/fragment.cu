@@ -10,117 +10,248 @@
 // index within its texel-row segment (`local`) from meta rows 0-1, as K1
 // does (slot_common.cuh, warp_slot_local), writes it into meta row 2 and
 // uses it; otherwise `local` is read from row 2. Plain version:
-// mesh2splat_torch/ops/fragment.py::fragment_apply_plain (slot_local when
-// local_in_kernel, then _fragment_math).
+// mesh2splat_torch/ops/fragment.py::fragment_apply_plain (index_select of
+// the tap columns, slot_local when local_in_kernel, then _fragment_math).
 //
-// Bound on the H100: bytes. A slot reads its taps (k*20 int32 when packed,
-// k*40 f32 otherwise, none without a texture), 4 meta floats (3 in LOCAL,
-// which writes the fourth) and the 58 record floats of its triangle, and
-// writes 20 floats; its few hundred flops are far below the card's
-// balance. Design: one thread per slot, all field-major rows so that
-// neighbouring threads read and write neighbouring addresses; record rows are
-// read by triangle id and mostly hit in cache, since consecutive slots share
-// their triangle. In LOCAL each warp of 32 slots scans alone; the search for
-// its first slot's segment start reads keys the warps before it have just
-// read, mostly from cache. The TPU's record-window DMA and one-hot MXU
-// select are not carried over.
+// Taps. The TPU kernel reads taps that an XLA gather wrote first
+// (atlasT[:, rows], one column per slot), because a Pallas TPU kernel
+// cannot fetch one column per lane. Here each slot reads its own column
+// `rows[slot]` of the tap atlas, and of it only the 4*TAPS_C fields of its
+// sub-texel group: no gathered copy of the taps exists in device memory.
+// The atlas may be field-major ((F, n_cols) contiguous: a warp's lanes read
+// neighbouring columns of one field row) or row-major (its (n_cols, F)
+// transpose contiguous: a slot's group is 160 contiguous bytes of f32, read
+// as 16-byte vectors). Without `rows` the column is the slot itself: the
+// taps were gathered by the caller, as the TPU kernel takes them.
+//
+// Bound on the H100: bytes by the roofline's count (per slot its meta
+// floats, its row index, the atlas groups the run touches, 20 floats
+// written), but a slot's arithmetic is long and exact (seven IEEE
+// divisions, four IEEE reciprocal square roots with a normal map, the
+// 64-bit addressing of 58 record fields), so the instruction count comes
+// first, as in K1. Design: each thread takes SPT consecutive slots with
+// vector meta loads and stores; each block stages the 58 record fields of
+// its triangle range in shared memory, slot-major, once (slots are sorted
+// by triangle, ~78 slots a triangle at bench size), so a slot reads them
+// with 32-bit shared loads at fixed offsets. A block whose range is wider
+// than TRI_CAP triangles, or whose slots leave it (keys that decrease),
+// reads the records through L1 by triangle id instead. In LOCAL each warp
+// of 32*SPT slots scans alone; the search for its first slot's segment
+// start reads keys the warps before it have just read, mostly from cache.
+// The TPU's record-window DMA and one-hot MXU select are not carried over.
+#include <cstring>
+#include <type_traits>
+
 #include "slot_common.cuh"
+
+#ifndef K2_SPT
+#define K2_SPT 1
+#endif
+#ifndef K2_STAGE
+#define K2_STAGE 1
+#endif
+#ifndef K2_TRI_CAP
+#define K2_TRI_CAP 64
+#endif
+#ifndef K2_OUT_VEC
+#define K2_OUT_VEC 1
+#endif
+#ifndef K2_THREADS
+#define K2_THREADS 128
+#endif
+#ifndef K2_MIN_BLOCKS
+#define K2_MIN_BLOCKS 8
+#endif
+#ifndef K2_STCS
+#define K2_STCS 1
+#endif
 
 namespace {
 
-constexpr int TAPS_C = 10;  // channels per tap: rgba | normal xyz | mr rgb
+constexpr int THREADS = K2_THREADS;
+constexpr int SPT = K2_SPT;                // slots a thread: 1, 2 or 4
+constexpr int WARP_SLOTS = 32 * SPT;
+constexpr int BLOCK_SLOTS = THREADS * SPT;
+constexpr int TAPS_C = 10;      // channels per tap: rgba | normal xyz | mr rgb
+constexpr int GROUP = 4 * TAPS_C;          // fields of one sub-texel's taps
 constexpr int OUT_W = 20;
+constexpr int TRI_CAP = K2_TRI_CAP;        // triangles a block stages
+constexpr int REC_S = 60;       // staged floats a triangle: 58, 16-B rows
 
-struct RecCol {
-  const float* __restrict__ records;
-  int64_t t_pad;
-  int64_t tri;
-  __device__ float operator()(int f) const {
-    return __ldg(records + (int64_t)f * t_pad + tri);
-  }
-};
+static_assert(SPT == 1 || SPT == 2 || SPT == 4, "SPT is 1, 2 or 4");
+static_assert(R_USED <= REC_S, "staged record row too short");
 
 struct Flags {
   int has_base, has_normal, has_mr, packed, k;
 };
 
-// Field f (of k*4*TAPS_C) of this slot's taps as f32. Packed taps hold field
-// f in the high half and field f + half in the low half of row f's int32
-// (ops/fragment.py build_pair_atlas / _unpack_taps).
-__device__ __forceinline__ float tap_field(const void* taps, int64_t cap,
-                                           int64_t i, int f, const Flags& fl) {
+// The tap atlas: column c's field f lies at atlas[f * ld + c] field-major,
+// at atlas[c * ld + f] row-major; rows == nullptr: column = slot.
+struct Taps {
+  const void* atlas;
+  const int32_t* rows;
+  int64_t ld;
+  int32_t n_cols;
+};
+
+// Record field f of a slot's triangle: from the block's staged rows, or by
+// triangle id from the (REC_W, T_pad) table.
+struct RecShared {
+  const float* p;
+  __device__ float operator()(int f) const { return p[f]; }
+};
+struct RecGlobal {
+  const float* __restrict__ p;
+  int64_t t_pad;
+  __device__ float operator()(int f) const {
+    return __ldg(p + (int64_t)f * t_pad);
+  }
+};
+
+template <int N> struct VecT;
+template <> struct VecT<1> { using F = float; using I = int32_t; };
+template <> struct VecT<2> { using F = float2; using I = int2; };
+template <> struct VecT<4> { using F = float4; using I = int4; };
+
+// SPT consecutive values of one row from slot `base` (0 past cap).
+template <bool VEC, typename T>
+__device__ __forceinline__ void load_slots(const T* __restrict__ row,
+                                           int32_t base, int32_t cap,
+                                           T (&v)[SPT]) {
+  using V = typename std::conditional<std::is_same<T, float>::value,
+                                      typename VecT<SPT>::F,
+                                      typename VecT<SPT>::I>::type;
+  if (VEC && base + SPT <= cap) {
+    const V x = __ldg(reinterpret_cast<const V*>(row + base));
+    memcpy(v, &x, sizeof(x));
+    return;
+  }
+#pragma unroll
+  for (int s = 0; s < SPT; ++s)
+    v[s] = base + s < cap ? __ldg(row + base + s) : T(0);
+}
+
+// SPT consecutive values of one row from slot `base` (none past cap).
+template <bool VEC>
+__device__ __forceinline__ void store_slots(float* __restrict__ row,
+                                            int32_t base, int32_t cap,
+                                            const float (&v)[SPT]) {
+  using V = typename VecT<SPT>::F;
+  if (VEC && base + SPT <= cap) {
+    V x;
+    memcpy(&x, v, sizeof(x));
+    if (K2_STCS)
+      __stcs(reinterpret_cast<V*>(row + base), x);
+    else
+      *reinterpret_cast<V*>(row + base) = x;
+    return;
+  }
+#pragma unroll
+  for (int s = 0; s < SPT; ++s)
+    if (base + s < cap) {
+      if (K2_STCS)
+        __stcs(row + base + s, v[s]);
+      else
+        row[base + s] = v[s];
+    }
+}
+
+__device__ __forceinline__ float hi_half(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+__device__ __forceinline__ float lo_half(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+
+// The GROUP fields of sub-texel group j of atlas column col as f32:
+// t[q] = field j * GROUP + q. Packed columns hold field f in the high half
+// and field f + half in the low half of int32 word f (half = k * GROUP / 2;
+// ops/fragment.py build_pair_atlas / _unpack_taps): for k = 1 the group is
+// words 0..19, high halves then low halves; for k >= 2 it is 40 words, all
+// high or all low.
+template <bool ROW>
+__device__ __forceinline__ void load_group(const Taps& tp, const Flags& fl,
+                                           int64_t col, int j,
+                                           float (&t)[GROUP]) {
+  const int g0 = j * GROUP;
   if (!fl.packed) {
-    return __ldg((const float*)taps + (int64_t)f * cap + i);
+    const float* a = (const float*)tp.atlas;
+    if (ROW) {
+      const float4* p = reinterpret_cast<const float4*>(a + col * tp.ld + g0);
+#pragma unroll
+      for (int q = 0; q < GROUP / 4; ++q) {
+        const float4 x = __ldg(p + q);
+        t[4 * q] = x.x;
+        t[4 * q + 1] = x.y;
+        t[4 * q + 2] = x.z;
+        t[4 * q + 3] = x.w;
+      }
+    } else {
+      const float* p = a + (int64_t)g0 * tp.ld + col;
+#pragma unroll
+      for (int q = 0; q < GROUP; ++q) t[q] = __ldg(p + q * tp.ld);
+    }
+    return;
   }
-  const int half = fl.k * 2 * TAPS_C;
-  const int32_t* t = (const int32_t*)taps;
-  uint32_t bits;
-  if (f < half) {
-    bits = (uint32_t)__ldg(t + (int64_t)f * cap + i) & 0xFFFF0000u;
+  const int half = fl.k * (GROUP / 2);
+  const bool one = fl.k == 1;
+  const bool high = g0 < half;
+  const int w0 = high ? g0 : g0 - half;   // first word (k >= 2)
+  const int32_t* a = (const int32_t*)tp.atlas;
+  uint32_t w[GROUP];
+  if (ROW) {
+    const int4* p = reinterpret_cast<const int4*>(a + col * tp.ld + w0);
+#pragma unroll
+    for (int q = 0; q < GROUP / 4; ++q) {
+      int4 x = make_int4(0, 0, 0, 0);
+      if (!one || q < GROUP / 8) x = __ldg(p + q);
+      w[4 * q] = (uint32_t)x.x;
+      w[4 * q + 1] = (uint32_t)x.y;
+      w[4 * q + 2] = (uint32_t)x.z;
+      w[4 * q + 3] = (uint32_t)x.w;
+    }
   } else {
-    bits = (uint32_t)__ldg(t + (int64_t)(f - half) * cap + i) << 16;
+    const int32_t* p = a + (int64_t)w0 * tp.ld + col;
+#pragma unroll
+    for (int q = 0; q < GROUP; ++q)
+      w[q] = (!one || q < GROUP / 2) ? (uint32_t)__ldg(p + q * tp.ld) : 0u;
   }
-  return __uint_as_float(bits);
+#pragma unroll
+  for (int q = 0; q < GROUP; ++q) {
+    if (q < GROUP / 2)
+      t[q] = (one || high) ? hi_half(w[q]) : lo_half(w[q]);
+    else
+      t[q] = one ? lo_half(w[q - GROUP / 2])
+                 : (high ? hi_half(w[q]) : lo_half(w[q]));
+  }
 }
 
 __device__ __forceinline__ float rsqrt_ieee(float x) {
   return 1.0f / sqrtf(x);
 }
 
-// LOCAL: `local` computed and written to local_row (meta row 2, which is
-// then not read); otherwise read from meta row 2 (local_row unused).
-template <bool LOCAL>
-__global__ void fragment_kernel(const float* __restrict__ records,
-                                int64_t t_pad, const void* __restrict__ taps,
-                                const float* __restrict__ meta, int64_t cap,
-                                int res, M2SGeom geom, Flags fl,
-                                float* __restrict__ out,
-                                float* __restrict__ local_row) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  float local = 0.0f;
-  if constexpr (LOCAL) {
-    // the whole warp scans: it leaves only when its first slot is past cap
-    const int32_t w0 = (int32_t)i - (int32_t)(threadIdx.x & 31);
-    if (w0 >= cap) return;
-    const float kt[1] = {i < cap ? meta[i] : 0.0f};
-    const float kr[1] = {i < cap ? meta[cap + i] : 0.0f};
-    float loc[1];
-    warp_slot_local<1>(meta, meta + cap, w0, (int32_t)cap, kt, kr, loc);
-    if (i >= cap) return;
-    local = loc[0];
-    local_row[i] = local;
-  } else {
-    if (i >= cap) return;
-  }
-  int64_t tri = (int64_t)meta[i];
-  tri = tri < 0 ? 0 : (tri >= t_pad ? t_pad - 1 : tri);
-  RecCol f{records, t_pad, tri};
-  SlotUV s = slot_uv(f, meta[cap + i], LOCAL ? local : meta[2 * cap + i],
-                     meta[3 * cap + i], res);
-  auto lerp = [&](int a, int b, int c) { return lerp3(s, f(a), f(b), f(c)); };
-  float px = lerp(R_PAX, R_PBX, R_PCX);
-  float py = lerp(R_PAY, R_PBY, R_PCY);
-  float pz = lerp(R_PAZ, R_PBZ, R_PCZ);
-  float nx = lerp(R_NAX, R_NBX, R_NCX);
-  float ny = lerp(R_NAY, R_NBY, R_NCY);
-  float nz = lerp(R_NAZ, R_NBZ, R_NCZ);
-  float tx_ = lerp(R_TAX, R_TBX, R_TCX);
-  float ty_ = lerp(R_TAY, R_TBY, R_TCY);
-  float tz_ = lerp(R_TAZ, R_TBZ, R_TCZ);
-  float tw_ = lerp(R_TAW, R_TBW, R_TCW);
+// One slot: its 20 output values. f reads its triangle's record fields;
+// col is its tap-atlas column (unused without a texture).
+template <bool ROW, typename Rec>
+__device__ __forceinline__ void shade(const Rec& f, float row_local,
+                                      float local, float live, int res,
+                                      const M2SGeom& geom, const Flags& fl,
+                                      const Taps& tp, int64_t col,
+                                      float (&o)[OUT_W]) {
+  SlotUV s = slot_uv(f, row_local, local, live, res);
 
   float mix[TAPS_C];
   if (fl.has_base || fl.has_normal || fl.has_mr) {
-    TapIndex t = tap_index(s.uu, s.vv, f(R_MID), f(R_LOD), geom, fl.k);
+    TapIndex ti = tap_index(s.uu, s.vv, f(R_MID), f(R_LOD), geom, fl.k);
     // the sub-texel's tap group; out-of-range sub selects group 0
-    int j = (t.sub > 0 && t.sub < fl.k) ? t.sub : 0;
-    int g0 = j * 4 * TAPS_C;
-    float fu = t.fu, fv = t.fv;
+    const int j = (ti.sub > 0 && ti.sub < fl.k) ? ti.sub : 0;
+    float t[GROUP];
+    load_group<ROW>(tp, fl, col, j, t);
+    const float fu = ti.fu, fv = ti.fv;
+#pragma unroll
     for (int c = 0; c < TAPS_C; ++c) {
-      float t00 = tap_field(taps, cap, i, g0 + c, fl);
-      float t01 = tap_field(taps, cap, i, g0 + TAPS_C + c, fl);
-      float t10 = tap_field(taps, cap, i, g0 + 2 * TAPS_C + c, fl);
-      float t11 = tap_field(taps, cap, i, g0 + 3 * TAPS_C + c, fl);
+      const float t00 = t[c], t01 = t[TAPS_C + c];
+      const float t10 = t[2 * TAPS_C + c], t11 = t[3 * TAPS_C + c];
       // fragment.py: the reference's sum of four products, as it fuses it
       mix[c] = fmaf(t11 * fu, fv,
                     fmaf(t10 * (1.0f - fu), fv,
@@ -129,20 +260,24 @@ __global__ void fragment_kernel(const float* __restrict__ records,
     }
   }
 
-  float col[4] = {f(R_FR), f(R_FG), f(R_FB), f(R_FA)};
-  if (fl.has_base) {
-    for (int c = 0; c < 4; ++c) col[c] = mix[c] * col[c];
-  }
+  auto lerp = [&](int a, int b, int c) { return lerp3(s, f(a), f(b), f(c)); };
+  const float nx = lerp(R_NAX, R_NBX, R_NCX);
+  const float ny = lerp(R_NAY, R_NBY, R_NCY);
+  const float nz = lerp(R_NAZ, R_NBZ, R_NCZ);
 
   float ox = nx, oy = ny, oz = nz;
   if (fl.has_normal) {
+    const float tx_ = lerp(R_TAX, R_TBX, R_TCX);
+    const float ty_ = lerp(R_TAY, R_TBY, R_TCY);
+    const float tz_ = lerp(R_TAZ, R_TBZ, R_TCZ);
+    const float tw_ = lerp(R_TAW, R_TBW, R_TCW);
     float mx = mix[4] * 2.0f - 1.0f;
     float my = mix[5] * 2.0f - 1.0f;
     float mz = mix[6] * 2.0f - 1.0f;
     float rinv = rsqrt_ieee(mx * mx + my * my + mz * mz + 1e-24f);
     mx = mx * rinv; my = my * rinv; mz = mz * rinv;
     rinv = rsqrt_ieee(nx * nx + ny * ny + nz * nz + 1e-24f);
-    float ux = nx * rinv, uy = ny * rinv, uz = nz * rinv;
+    const float ux = nx * rinv, uy = ny * rinv, uz = nz * rinv;
     float bx = uy * tz_ - uz * ty_;
     float by = uz * tx_ - ux * tz_;
     float bz = ux * ty_ - uy * tx_;
@@ -155,42 +290,180 @@ __global__ void fragment_kernel(const float* __restrict__ records,
     ox = ox * rinv; oy = oy * rinv; oz = oz * rinv;
   }
 
-  float metal = 0.1f, rough = 0.5f;
-  if (fl.has_mr) {
-    metal = mix[9];
-    rough = mix[8];
+  o[0] = lerp(R_PAX, R_PBX, R_PCX);
+  o[1] = lerp(R_PAY, R_PBY, R_PCY);
+  o[2] = lerp(R_PAZ, R_PBZ, R_PCZ);
+  o[3] = fl.has_base ? mix[0] * f(R_FR) : f(R_FR);
+  o[4] = fl.has_base ? mix[1] * f(R_FG) : f(R_FG);
+  o[5] = fl.has_base ? mix[2] * f(R_FB) : f(R_FB);
+  o[6] = fl.has_base ? mix[3] * f(R_FA) : f(R_FA);
+  o[7] = f(R_SX);
+  o[8] = f(R_SY);
+  o[9] = f(R_SZ);
+  o[10] = ox;
+  o[11] = oy;
+  o[12] = oz;
+  o[13] = f(R_QW);
+  o[14] = f(R_QX);
+  o[15] = f(R_QY);
+  o[16] = f(R_QZ);
+  o[17] = fl.has_mr ? mix[9] : 0.1f;
+  o[18] = fl.has_mr ? mix[8] : 0.5f;
+  o[19] = s.valid ? 1.0f : 0.0f;
+}
+
+__device__ __forceinline__ int32_t clamp_tri(float t, int64_t t_pad) {
+  const int32_t i = f2i(t);
+  return i < 0 ? 0 : (i >= t_pad ? (int32_t)(t_pad - 1) : i);
+}
+
+// LOCAL: `local` computed and written to meta row 2, which is then not
+// read; otherwise read from row 2. ROW: the atlas is row-major. VEC: every
+// meta row, `rows` and the output start on SPT * 4 bytes and cap % SPT == 0.
+template <bool LOCAL, bool ROW, bool VEC>
+__global__ void __launch_bounds__(THREADS, K2_MIN_BLOCKS)
+    fragment_kernel(const float* __restrict__ records, int64_t t_pad,
+                    Taps tp, float* __restrict__ meta, int32_t cap, int res,
+                    M2SGeom geom, Flags fl, float* __restrict__ out) {
+  __shared__ __align__(16) float s_rec[K2_STAGE ? TRI_CAP * REC_S : 1];
+  const float* tri_row = meta;
+  const float* row_row = meta + cap;
+  float* local_row = meta + 2 * (int64_t)cap;
+  const float* live_row = meta + 3 * (int64_t)cap;
+  const int lane = threadIdx.x & 31;
+  const int32_t b0 = blockIdx.x * BLOCK_SLOTS;   // the block's first slot
+  const int32_t w0 = b0 + (threadIdx.x >> 5) * WARP_SLOTS;
+  const int32_t base = w0 + lane * SPT;
+
+  float tri[SPT], row[SPT], live[SPT], local[SPT];
+  load_slots<VEC>(tri_row, base, cap, tri);
+  load_slots<VEC>(row_row, base, cap, row);
+  load_slots<VEC>(live_row, base, cap, live);
+  if (!LOCAL) load_slots<VEC>((const float*)local_row, base, cap, local);
+  int32_t col[SPT];
+  if (tp.atlas != nullptr && tp.rows != nullptr) {
+    load_slots<VEC>(tp.rows, base, cap, col);
+  } else {
+#pragma unroll
+    for (int s = 0; s < SPT; ++s) col[s] = base + s;
   }
 
-  const float o[OUT_W] = {
-      px, py, pz, col[0], col[1], col[2], col[3],
-      f(R_SX), f(R_SY), f(R_SZ), ox, oy, oz,
-      f(R_QW), f(R_QX), f(R_QY), f(R_QZ), metal, rough,
-      s.valid ? 1.0f : 0.0f};
+  // the block's triangle range, staged when it is narrow and holds every
+  // slot of the block (block-uniform)
+  const int32_t t_lo = clamp_tri(__ldg(tri_row + b0), t_pad);
+  const int32_t t_hi =
+      clamp_tri(__ldg(tri_row + min(b0 + BLOCK_SLOTS, cap) - 1), t_pad);
+  bool staged = false;
+  if (K2_STAGE) {
+    const int32_t n = t_hi - t_lo + 1;
+    const bool fits = t_lo <= t_hi && n <= TRI_CAP;
+    bool inside = true;
 #pragma unroll
-  for (int r = 0; r < OUT_W; ++r) out[(int64_t)r * cap + i] = o[r];
+    for (int s = 0; s < SPT; ++s) {
+      const int32_t t = clamp_tri(tri[s], t_pad);
+      if (base + s < cap) inside = inside && t >= t_lo && t <= t_hi;
+    }
+    if (fits) {
+      for (int e = threadIdx.x; e < R_USED * n; e += THREADS) {
+        const int fld = e / n;
+        const int t = e - fld * n;
+        s_rec[t * REC_S + fld] =
+            __ldg(records + (int64_t)fld * t_pad + t_lo + t);
+      }
+    }
+    staged = __syncthreads_and(fits && inside);
+  }
+
+  if constexpr (LOCAL) {
+    // whole warps scan; a warp past cap has nothing to scan
+    if (w0 < cap) warp_slot_local<SPT>(tri_row, row_row, w0, cap, tri, row,
+                                       local);
+    store_slots<VEC>(local_row, base, cap, local);
+  }
+
+  // OUT_VEC: the SPT slots' outputs are kept and stored as vectors;
+  // otherwise each slot's are stored as soon as they are computed
+  float o[K2_OUT_VEC ? SPT : 1][OUT_W];
+#pragma unroll
+  for (int s = 0; s < SPT; ++s) {
+    if (base + s >= cap) continue;
+    float(&os)[OUT_W] = o[K2_OUT_VEC ? s : 0];
+    const int32_t t = clamp_tri(tri[s], t_pad);
+    const int64_t c = tp.rows != nullptr
+                          ? (int64_t)min(max(col[s], 0), tp.n_cols - 1)
+                          : (int64_t)col[s];
+    if (staged)
+      shade<ROW>(RecShared{s_rec + (t - t_lo) * REC_S}, row[s], local[s],
+                 live[s], res, geom, fl, tp, c, os);
+    else
+      shade<ROW>(RecGlobal{records + t, t_pad}, row[s], local[s], live[s],
+                 res, geom, fl, tp, c, os);
+    if (!K2_OUT_VEC) {
+#pragma unroll
+      for (int r = 0; r < OUT_W; ++r) out[(int64_t)r * cap + base + s] = os[r];
+    }
+  }
+  if (K2_OUT_VEC) {
+#pragma unroll
+    for (int r = 0; r < OUT_W; ++r) {
+      float v[SPT];
+#pragma unroll
+      for (int s = 0; s < SPT; ++s) v[s] = o[K2_OUT_VEC ? s : 0][r];
+      store_slots<VEC>(out + (int64_t)r * cap, base, cap, v);
+    }
+  }
+}
+
+template <bool LOCAL, bool ROW>
+void launch(bool vec, unsigned blocks, cudaStream_t st, const float* records,
+            int64_t t_pad, const Taps& tp, float* meta, int32_t cap, int res,
+            const M2SGeom& geom, const Flags& fl, float* out) {
+  if (vec)
+    fragment_kernel<LOCAL, ROW, true><<<blocks, THREADS, 0, st>>>(
+        records, t_pad, tp, meta, cap, res, geom, fl, out);
+  else
+    fragment_kernel<LOCAL, ROW, false><<<blocks, THREADS, 0, st>>>(
+        records, t_pad, tp, meta, cap, res, geom, fl, out);
 }
 
 }  // namespace
 
-// local != 0: the LOCAL mode, which writes meta row 2 (cap below 2^30).
+// taps: the tap atlas (null without a texture); rows: its column per slot
+// (null: column = slot); ld, row_major: its layout (see Taps); local != 0:
+// the LOCAL mode, which writes meta row 2. Fewer than 2^30 slots.
 extern "C" int m2s_fragment_apply(const float* records, int64_t t_pad,
-                                  const void* taps, float* meta,
-                                  int64_t cap, int res, M2SGeom geom, int k,
-                                  int has_base, int has_normal, int has_mr,
-                                  int packed, int local, float* out,
-                                  void* stream) {
+                                  const void* taps, const int32_t* rows,
+                                  int64_t ld, int n_cols, int row_major,
+                                  float* meta, int64_t cap, int res,
+                                  M2SGeom geom, int k, int has_base,
+                                  int has_normal, int has_mr, int packed,
+                                  int local, float* out, void* stream) {
   if (cap > 0) {
-    Flags fl{has_base, has_normal, has_mr, packed, k};
-    const int threads = 256;  // whole warps: LOCAL scans a warp's 32 slots
-    const int64_t blocks = (cap + threads - 1) / threads;
+    const Flags fl{has_base, has_normal, has_mr, packed, k};
+    const Taps tp{taps, rows, ld, n_cols};
+    const unsigned blocks = (unsigned)((cap + BLOCK_SLOTS - 1) / BLOCK_SLOTS);
+    const uintptr_t al = SPT * 4;
+    const bool vec = cap % SPT == 0 && (uintptr_t)meta % al == 0 &&
+                     (uintptr_t)out % al == 0 &&
+                     (rows == nullptr || (uintptr_t)rows % al == 0);
+    const bool row = taps != nullptr && row_major;
     cudaStream_t st = (cudaStream_t)stream;
-    if (local)
-      fragment_kernel<true><<<(unsigned)blocks, threads, 0, st>>>(
-          records, t_pad, taps, meta, cap, res, geom, fl, out,
-          meta + 2 * cap);
-    else
-      fragment_kernel<false><<<(unsigned)blocks, threads, 0, st>>>(
-          records, t_pad, taps, meta, cap, res, geom, fl, out, nullptr);
+    const int32_t c = (int32_t)cap;
+    if (local) {
+      if (row)
+        launch<true, true>(vec, blocks, st, records, t_pad, tp, meta, c, res,
+                           geom, fl, out);
+      else
+        launch<true, false>(vec, blocks, st, records, t_pad, tp, meta, c, res,
+                            geom, fl, out);
+    } else {
+      if (row)
+        launch<false, true>(vec, blocks, st, records, t_pad, tp, meta, c, res,
+                            geom, fl, out);
+      else
+        launch<false, false>(vec, blocks, st, records, t_pad, tp, meta, c,
+                             res, geom, fl, out);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -7,14 +7,17 @@
      texel row (exclusive cumsum), each row the exact covered column range.
   3. Row -> texel-slot expansion by scatter-max + cummax forward fills: the
      replacement for the reference's atomic appends.
-  4. The fragment shader (ops.fragment): K1 texel rows, one texture gather,
-     K2 fragment math. Each slot's index within its texel row (``local``)
-     comes from the kernels: K1 computes it where it runs, else K2 does;
-     only a mesh too large for the packed slot key fills it in stage 3.
+  4. The fragment shader (ops.fragment): K1 texel rows, then K2's fragment
+     math, which reads each slot's taps from the atlas at K1's row (no
+     gathered copy of the taps is made). Each slot's index within its
+     texel row (``local``) comes from the kernels: K1 computes it where it
+     runs, else K2 does; only a mesh too large for the packed slot key
+     fills it in stage 3.
 
 ``convert`` is differentiable with respect to the material (textures and
-factors) and the mesh attributes: the f32 tap atlas, the tap gather and the
-fragment VJP carry the gradient; the slot allocation is integer.
+factors) and the mesh attributes: the f32 tap atlas and the fragment VJP
+(which gathers the taps again) carry the gradient; the slot allocation is
+integer.
 
 Slot order equals the JAX package's, so splats compare element by element.
 """
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 
 from ..types import Material, Splats, TriangleMesh
 from . import fragment, segments
-from .numerics import fma, sqrt
+from .numerics import div, fma, sqrt
 from .triplanar import triangle_conversion_attrs
 
 
@@ -215,7 +218,7 @@ def _row_widths(mesh, ouv, res, row_cap, max_texels_per_tri):
     tx0 = g[:, 6].to(torch.int32)
     tw = g[:, 8].to(torch.int32)
     j = g[:, 7].to(torch.int32) + row_local
-    y = (j.to(torch.float32) + 0.5) / res
+    y = div(j.to(torch.float32) + 0.5, res)
     c0, c1, nonempty = _row_span(g[:, 0:6], tx0, tw, y, res)
     width = torch.where(row_live & nonempty, c1 - c0 + 1, 0)
     width = torch.clamp(width, min=0)
@@ -312,7 +315,8 @@ def _triangle_lod(mesh, ouv, res, n_levels, th0, tw0):
 
 def _finish_convert(mesh, config, stack, mids, factors, has_base,
                     has_normal, has_mr, ex, atlas: PackedAtlas | None = None):
-    """Stage 4: record table, K1, the tap gather, K2 -> Splats."""
+    """Stage 4: record table, K1, K2 (reading the tap atlas by K1's rows)
+    -> Splats."""
     res = config.resolution
     cap = config.capacity
     t = ex["t"]
@@ -378,22 +382,23 @@ def _finish_convert(mesh, config, stack, mids, factors, has_base,
         atlasT, geom = fragment.build_pair_atlas(stack, k,
                                                  mips=config.use_mips)
     if atlas is not None or stack is not None:
-        # K1 also writes each slot's local into metaT's row 2, for K2
+        # K1 also writes each slot's local into metaT's row 2, for K2; K2
+        # reads each slot's taps from the atlas at its row
         rows_idx = fragment.texel_rows(
             records, metaT, res=res, geom=geom, k=k, n_rows=atlasT.shape[1],
         )
-        tapsT = atlasT.index_select(1, rows_idx)  # (k*4*10[/2], cap)
+        tapsT = atlasT
         local_in_kernel = False
     else:
         geom, k = ((0, 1, 1, 1),), 1
-        tapsT = torch.zeros((1, cap), device=dev)
+        tapsT, rows_idx = torch.zeros((1, 1), device=dev), None  # not read
         # no K1: K2 computes local, unless stage 3 filled it
         local_in_kernel = local is None
 
     outT, _ = fragment.fragment_apply(
         records, tapsT, metaT, res, tuple(geom), k,
         has_base, has_normal, has_mr, taps_packed,
-        local_in_kernel=local_in_kernel,
+        local_in_kernel=local_in_kernel, rows=rows_idx,
     )
     return Splats(
         pos=outT[0:3].T, color=outT[3:7].T, scale=outT[7:10].T,

@@ -2,7 +2,7 @@
 ``mesh2splat_tpu.ops.fragment``): kernel K1 (``texel_rows``, the bilinear
 footprint's packed atlas row per slot) and kernel K2 (``fragment_apply``,
 coverage, barycentric lerps, bilinear mix and TBN normal mapping), around
-one texture gather.
+the tap atlas, which K2 reads by K1's rows.
 
 Every per-slot quantity is field-major: a (F, N) tensor whose row f is one
 field over all N slots. A CUDA tensor launches the hand-written kernels of
@@ -15,10 +15,10 @@ which otherwise build without FMA contraction), so the two agree bit for bit
 with each other and with the reference.
 
 ``fragment_apply`` is differentiable with respect to the records (the mesh
-attributes) and f32 taps (the textures, through the tap gather): its
-backward recomputes the plain math under autograd on the gathered records
-and taps, as the JAX package's VJP differentiates ``_fragment_math`` in
-XLA. Packed (bf16-pair) taps get no gradient.
+attributes) and f32 taps or the f32 atlas they come from (the textures):
+its backward gathers the records and taps again and recomputes the plain
+math under autograd, as the JAX package's VJP differentiates
+``_fragment_math`` in XLA. Packed (bf16-pair) taps get no gradient.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .numerics import fma, sqrt
+from .numerics import div, fma, sqrt
 
 # ---- record layout: field-major rows of the (REC_W, T_pad) record table ---
 REC = {
@@ -102,7 +102,9 @@ def build_pair_atlas(stack: torch.Tensor, k: int, packed: bool = False,
     per-level geometry. Each row holds the 2x2 bilinear footprints of k
     texels (REPEAT wrap within the layer). packed=True stores channel pairs
     as two bf16s per int32 lane (field f high, field f + n/2 low), rounded
-    to nearest even."""
+    to nearest even. The atlas is the transpose of a contiguous
+    (n_rows, 4*C*k) tensor: one atlas row's fields lie together, where K2
+    reads a slot's taps as 16-byte vectors."""
     m, h, w, c = stack.shape
     geom = mip_geometry(h, w, k, mips, n_layers=m)
 
@@ -124,17 +126,17 @@ def build_pair_atlas(stack: torch.Tensor, k: int, packed: bool = False,
         if cur.shape[1] != lh:
             cur = downsample2(cur)
         rows.append(level_rows(cur, hw_pad))
-    atlasT = torch.cat(rows, dim=0).T.contiguous()  # (k*4*c, n_rows)
+    atlas = torch.cat(rows, dim=0)  # (n_rows, k*4*c)
     if not packed:
-        return atlasT, geom
-    half = atlasT.shape[0] // 2
+        return atlas.T, geom
+    half = atlas.shape[1] // 2
 
     def bf16_bits(x):
         return x.to(torch.bfloat16).to(torch.float32).view(torch.int32)
 
-    hi = bf16_bits(atlasT[:half]) & -65536                 # 0xFFFF0000
-    lo = (bf16_bits(atlasT[half:]) >> 16) & 0xFFFF         # logical shift
-    return (hi | lo).contiguous(), geom
+    hi = bf16_bits(atlas[:, :half]) & -65536               # 0xFFFF0000
+    lo = (bf16_bits(atlas[:, half:]) >> 16) & 0xFFFF       # logical shift
+    return (hi | lo).contiguous().T, geom
 
 
 def _unpack_taps(packed_i32):
@@ -183,12 +185,12 @@ def _slot_uv(rec, meta, res):
     tx0 = f("tx0").to(torch.int32)
     tw = f("tw").to(torch.int32)
     tj = f("ty0").to(torch.int32) + row_local.to(torch.int32)
-    y_s = (tj.to(torch.float32) + 0.5) / res
+    y_s = div(tj.to(torch.float32) + 0.5, res)
 
     au, av, bu, bv, cu, cv = (f(n) for n in ("au", "av", "bu", "bv", "cu", "cv"))
     sc0 = _row_span_cols(au, av, bu, bv, cu, cv, tx0, tw, y_s, res)
     ti = sc0 + local.to(torch.int32)
-    pu = (ti.to(torch.float32) + 0.5) / res
+    pu = div(ti.to(torch.float32) + 0.5, res)
     pv = y_s
 
     v0u, v0v = bu - au, bv - av
@@ -385,14 +387,17 @@ def texel_rows(records, metaT, *, res, geom, k, n_rows):
 
 def fragment_apply_plain(records, tapsT, metaT, *, res, geom, k, has_base,
                          has_normal, has_mr, taps_packed,
-                         local_in_kernel=False):
-    """Plain version of K2 on any device: (OUT_W, cap) f32. With
-    local_in_kernel it first writes ``slot_local`` into row 2 of
-    ``metaT``, as the kernel does."""
+                         local_in_kernel=False, rows=None):
+    """Plain version of K2 on any device: (OUT_W, cap) f32. With rows,
+    tapsT is the tap atlas and the taps are its columns rows
+    (``index_select``). With local_in_kernel it first writes
+    ``slot_local`` into row 2 of ``metaT``, as the kernel does."""
     if local_in_kernel:
         metaT[2] = slot_local(metaT)
     taps = None
     if has_base or has_normal or has_mr:
+        if rows is not None:
+            tapsT = tapsT.index_select(1, rows)
         taps = _unpack_taps(tapsT) if taps_packed else tapsT
     return _fragment_math(
         _gather_rec(records, metaT), taps, metaT, res=res, geom=geom, k=k,
@@ -403,21 +408,25 @@ def fragment_apply_plain(records, tapsT, metaT, *, res, geom, k, has_base,
 class _FragmentApply(torch.autograd.Function):
     """K2 forward (the kernel on a CUDA tensor, the plain version on a CPU
     tensor); backward = the VJP of ``_fragment_math``, from the metaT the
-    forward leaves (with local_in_kernel, its row 2 then holds local)."""
+    forward leaves (with local_in_kernel, its row 2 then holds local). With
+    rows it saves the atlas and rows, not gathered taps, and its backward
+    gathers them again under autograd, so the gradient reaches the atlas
+    through ``index_select``'s own VJP."""
 
     @staticmethod
-    def forward(ctx, records, tapsT, metaT, kw):
+    def forward(ctx, records, tapsT, metaT, rows, kw):
         if records.is_cuda:
-            out = kernels.fragment_apply(records, tapsT, metaT, **kw)
+            out = kernels.fragment_apply(records, tapsT, metaT, rows=rows,
+                                         **kw)
         else:
-            out = fragment_apply_plain(records, tapsT, metaT, **kw)
-        ctx.save_for_backward(records, tapsT, metaT)
+            out = fragment_apply_plain(records, tapsT, metaT, rows=rows, **kw)
+        ctx.save_for_backward(records, tapsT, metaT, rows)
         ctx.kw = kw
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        records, tapsT, metaT = ctx.saved_tensors
+        records, tapsT, metaT, rows = ctx.saved_tensors
         kw = dict(ctx.kw)
         packed = kw.pop("taps_packed")
         del kw["local_in_kernel"]
@@ -425,35 +434,41 @@ class _FragmentApply(torch.autograd.Function):
         want_taps = has_stack and not packed and ctx.needs_input_grad[1]
         with torch.enable_grad():
             rec = records.detach().requires_grad_(ctx.needs_input_grad[0])
-            taps = None
+            src = taps = None
             if has_stack:
-                taps = (_unpack_taps(tapsT) if packed
-                        else tapsT.detach().requires_grad_(want_taps))
+                src = tapsT.detach().requires_grad_(want_taps)
+                taps = src if rows is None else src.index_select(1, rows)
+                if packed:
+                    taps = _unpack_taps(taps)
             out = _fragment_math(_gather_rec(rec, metaT), taps, metaT, **kw)
             inputs = [t for t, need in ((rec, ctx.needs_input_grad[0]),
-                                        (taps, want_taps)) if need]
+                                        (src, want_taps)) if need]
             grads = iter(torch.autograd.grad(out, inputs, g_out,
                                              allow_unused=True)
                          if inputs else ())
         d_rec = next(grads) if ctx.needs_input_grad[0] else None
         d_taps = next(grads) if want_taps else None
-        return d_rec, d_taps, None, None
+        return d_rec, d_taps, None, None, None
 
 
 def fragment_apply(records, tapsT, metaT, res, geom, k,
                    has_base, has_normal, has_mr, taps_packed=False,
-                   local_in_kernel=False):
+                   local_in_kernel=False, rows=None):
     """K2: the fragment shader over all slots. records (REC_W, T_pad) f32;
-    tapsT (k*4*TAPS_C, cap) f32, or (k*4*TAPS_C/2, cap) int32 bf16 pairs
-    when taps_packed, or a dummy (1, cap) when the material has no texture;
-    metaT (4, cap) f32 [tri, row_local, local, live]. local_in_kernel: row 2
-    is not read; K2 computes each slot's local (``slot_local``; rows 0 and
-    1 must never decrease together along the slots, as the conversion
+    tapsT (k*4*TAPS_C, cap) f32 gathered taps, or (k*4*TAPS_C/2, cap) int32
+    bf16 pairs when taps_packed, or any dummy when the material has no
+    texture; with rows ((cap,) int32, K1's texel_rows), tapsT is instead
+    the tap atlas (k*4*TAPS_C[/2], n_rows) and slot i's taps are its column
+    rows[i] (the kernel reads them there: no gathered copy is made); metaT
+    (4, cap) f32 [tri, row_local, local, live]. local_in_kernel: row 2 is
+    not read; K2 computes each slot's local (``slot_local``; rows 0 and 1
+    must never decrease together along the slots, as the conversion
     allocates them) and writes it there, as the JAX kernel B returns it.
     Returns ((OUT_W, cap) f32, (1, cap) f32 local). A CUDA tensor launches
     the kernel, a CPU tensor takes the plain version; either way the
-    gradient flows to records and f32 taps."""
+    gradient flows to records and f32 taps (with rows, to the atlas)."""
     kw = dict(res=res, geom=geom, k=k, has_base=has_base,
               has_normal=has_normal, has_mr=has_mr, taps_packed=taps_packed,
               local_in_kernel=local_in_kernel)
-    return _FragmentApply.apply(records, tapsT, metaT, kw), metaT[2:3]
+    return (_FragmentApply.apply(records, tapsT, metaT, rows, kw),
+            metaT[2:3])

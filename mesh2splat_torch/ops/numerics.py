@@ -30,6 +30,15 @@ import numpy as np
 import torch
 
 
+def div(x, d):
+    """x / d for a float tensor x and a Python number d, rounded as one IEEE
+    division on every device. PyTorch's CUDA division by a CPU scalar
+    multiplies by the scalar's rounded reciprocal instead, which is not the
+    quotient the reference and the kernels compute where 1 / d is inexact
+    (d = 96, say)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def _f64(x, like):
     if isinstance(x, torch.Tensor):
         return x.to(torch.float64)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where mesh2splat_torch's time goes on a CUDA card: torch.profiler over
 chip_smoke.py's full-size workload (20k-triangle sphere, resolution 512;
-its conversion with the textures and without them, the latter also as the
-port ran it before K2 computed local (chip_smoke.parent_local_fill); 1080p
+its conversion with the textures and without them, the former also as the
+port ran it before K2 read the tap atlas itself (chip_smoke.
+parent_tap_gather), the latter as it ran before K2 computed local
+(chip_smoke.parent_local_fill); 1080p
 ALBEDO render, 1080p FINAL render with shadows, bench.py's 1024^2 shadow
 cubemap, 1080p OVERDRAW render, one fit_splats step over 2 views at
 1080p), after a warm-up.
@@ -27,7 +29,8 @@ def profile(label, fn, rows):
     n_cm, ms_cm = cs.cummax_ops(r)
     print(f"== {label}: wall {r['wall_ms']:.2f} ms, device busy "
           f"{r['busy_ms']:.2f} ms ({100 * r['busy_ms'] / r['wall_ms']:.1f} % "
-          f"of wall), cummax {n_cm} launches {ms_cm:.3f} ms")
+          f"of wall), cummax {n_cm} launches {ms_cm:.3f} ms, index_select "
+          f"{cs.index_selects(r)} calls")
     for title, group in (("host ops, by the device time they launched",
                           r["ops"]), ("device kernels", r["kernels"])):
         print(f"  -- {title}")
@@ -50,12 +53,18 @@ def main():
         check=True).stdout.strip())
     from mesh2splat_torch.types import RenderMode
 
-    scene = cs.make_scene(cs.synth_primitive(), torch.device("cuda"))
-    sp = scene.convert(resolution=512, layers=6)
-    profile("Scene.convert(512, 6)",
-            lambda: scene.convert(resolution=512, layers=6), args.rows)
     from mesh2splat_torch.ops import fragment as TF
     from mesh2splat_torch.ops import segments as TSEG
+
+    scene = cs.make_scene(cs.synth_primitive(), torch.device("cuda"))
+    sp = scene.convert(resolution=512, layers=6)
+    for label in ("parent's path", "this tree", "this tree",
+                  "parent's path"):
+        with (cs.parent_tap_gather(TF) if label == "parent's path"
+              else contextlib.nullcontext()):
+            profile(f"Scene.convert(512, 6) ({label})",
+                    lambda: scene.convert(resolution=512, layers=6),
+                    args.rows)
 
     plain = cs.untextured_scene(cs.synth_primitive(), torch.device("cuda"))
     for label in ("parent's path", "this tree", "this tree",

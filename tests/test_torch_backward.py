@@ -40,8 +40,8 @@ from mesh2splat_torch.render import composite as TCOMP
 from mesh2splat_torch.render.rasterize import rasterize_dense as t_dense
 from mesh2splat_torch.render.tiled import rasterize_tiled as t_tiled
 from mesh2splat_torch.types import SplatFormat as TSF
-from torch_parity import assert_rows_close, host, jax_mesh_material, \
-    sphere_mesh, torch_mesh_material
+from torch_parity import assert_rows_close, gathered_taps, host, \
+    jax_mesh_material, sphere_mesh, torch_mesh_material
 
 W, H = 256, 64
 CAM = dict(eye=[0, 0, 5], center=[0, 0, 0], up=[0, 1, 0],
@@ -327,21 +327,24 @@ def test_albedo_only_matches_full():
 # ---- the fragment VJP and conversion's texture gradient ----------------------
 
 
-def _slot_inputs(mesh, mat, res):
-    """The records, f32 taps and meta that convert hands fragment_apply."""
+def _slot_inputs(mesh, mat, res, fast_rows=TF.FAST_ROWS):
+    """The records, atlas, rows and meta that convert hands fragment_apply,
+    and the f32 taps they gather (fast_rows: pack_factor's FAST_ROWS)."""
     tm, tmat = torch_mesh_material(mesh, mat)
     seen = {}
-    real = TF.fragment_apply
+    real, fast = TF.fragment_apply, TF.FAST_ROWS
 
     def spy(records, tapsT, metaT, *args, **kw):
-        seen.update(records=records, tapsT=tapsT, metaT=metaT, args=args)
+        seen.update(records=records, tapsT=gathered_taps(tapsT, kw),
+                    atlasT=tapsT, rows=kw.get("rows"), metaT=metaT,
+                    args=args)
         return real(records, tapsT, metaT, *args, **kw)
 
-    TF.fragment_apply = spy
+    TF.fragment_apply, TF.FAST_ROWS = spy, fast_rows
     try:
         TC.convert(tm, tmat, *tm.bbox(), TC.ConversionConfig(res, 6))
     finally:
-        TF.fragment_apply = real
+        TF.fragment_apply, TF.FAST_ROWS = real, fast
     return seen
 
 
@@ -377,6 +380,67 @@ def test_fragment_vjp_matches_jax():
     assert np.abs(ref_taps).max() > 0 and np.abs(ref_rec).max() > 0
     assert_rows_close(ttaps.grad.numpy(), ref_taps, 1e-4, "taps")
     assert_rows_close(trec.grad.numpy()[:58], ref_rec[:58], 1e-3, "records")
+
+
+# FAST_ROWS that make pack_factor pack k texels an atlas row of a 16^2
+# texture (256 texels)
+K_FAST_ROWS = {1: TF.FAST_ROWS, 2: 200, 4: 100}
+
+
+@pytest.mark.parametrize("k,drop", [
+    (1, ()), (2, ()), (4, ()), (2, ("has_normal", "has_metallic_roughness")),
+    (4, ("has_base_color",))])
+def test_fragment_vjp_rows_matches_jax(k, drop):
+    """The fragment VJP when K2 reads the f32 atlas by K1's rows (the
+    conversion's call): the gradients to the records and to the atlas
+    against the JAX VJP through atlasT[:, rows] (jax.vjp of its
+    fragment_apply on the gathered taps), within
+    test_fragment_vjp_matches_jax's bounds, for k texels an atlas row and
+    some maps absent; and the atlas gradient equal to the one through
+    index_select, which the conversion ran before K2 read the atlas."""
+    mesh, mat = sphere_mesh(150, seed=9 + k, tex=16)
+    mat.update({name: False for name in drop})
+    s = _slot_inputs(mesh, mat, 32, K_FAST_ROWS[k])
+    res, geom, kk, hb, hn, hm, packed = s["args"]
+    assert kk == k and not packed and s["rows"] is not None
+    rec, atlas, meta = (s[n].detach().numpy() for n in
+                        ("records", "atlasT", "metaT"))
+    rows = s["rows"]
+    out0, _ = TF.fragment_apply(torch.from_numpy(rec),
+                                torch.from_numpy(atlas),
+                                torch.from_numpy(meta), res, geom, k, hb, hn,
+                                hm, rows=rows)
+    live = out0[19].numpy() > 0
+    g = (np.random.default_rng(k).normal(size=out0.shape)
+         * live).astype(np.float32)
+    g[19] = 0.0
+    ridx = jnp.asarray(rows.numpy())
+
+    def j_fn(r, a):
+        return JF.fragment_apply(r, a[:, ridx], jnp.asarray(meta), res, geom,
+                                 k, hb, hn, hm, 0, False)[0]
+
+    _, vjp = jax.vjp(j_fn, jnp.asarray(rec), jnp.asarray(atlas))
+    ref_rec, ref_atlas = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+
+    grads = []
+    for gather_first in (False, True):
+        trec = torch.from_numpy(rec).requires_grad_(True)
+        tatlas = torch.from_numpy(atlas).requires_grad_(True)
+        if gather_first:
+            out, _ = TF.fragment_apply(trec, tatlas.index_select(1, rows),
+                                       torch.from_numpy(meta), res, geom, k,
+                                       hb, hn, hm)
+        else:
+            out, _ = TF.fragment_apply(trec, tatlas, torch.from_numpy(meta),
+                                       res, geom, k, hb, hn, hm, rows=rows)
+        out.backward(torch.from_numpy(g))
+        grads.append((trec.grad.numpy(), tatlas.grad.numpy()))
+    assert np.abs(ref_atlas).max() > 0 and np.abs(ref_rec).max() > 0
+    assert_rows_close(grads[0][1], ref_atlas, 1e-4, "atlas")
+    assert_rows_close(grads[0][0][:58], ref_rec[:58], 1e-3, "records")
+    np.testing.assert_array_equal(grads[0][0], grads[1][0])
+    np.testing.assert_array_equal(grads[0][1], grads[1][1])
 
 
 def test_conversion_texture_gradient_matches_jax():

@@ -20,16 +20,28 @@ from mesh2splat_torch.ops import conversion as TC
 from mesh2splat_torch.ops import fragment as TF
 from mesh2splat_torch.ops import segments as TS
 from mesh2splat_torch.types import Material as TMaterial
-from torch_parity import host, jax_mesh_material, sphere_mesh, \
-    torch_mesh_material
+from torch_parity import gathered_taps, host, jax_mesh_material, \
+    sphere_mesh, torch_mesh_material
 
 SPLAT_FIELDS = ("pos", "color", "scale", "normal", "quat", "pbr")
 
 
-def _convert_inputs(n_tri=400, res=48, textured=True, atlas=None, seed=0):
+# FAST_ROWS that make pack_factor pack k texels an atlas row of a 32^2
+# texture (1024 texels), and the maps each case of MAPS leaves out
+K_FAST_ROWS = {1: TF.FAST_ROWS, 2: 600, 4: 300}
+MAPS = {"all": (), "base": ("has_normal", "has_metallic_roughness"),
+        "normal": ("has_base_color", "has_metallic_roughness"),
+        "mr": ("has_base_color", "has_normal")}
+
+
+def _convert_inputs(n_tri=400, res=48, textured=True, atlas=None, seed=0,
+                    k=1, maps="all"):
     """Port conversion of a small sphere, capturing the record table,
-    metaT and gathered taps its fragment kernels receive."""
+    metaT, the tap atlas and K1's rows its fragment kernel receives, and
+    the taps they gather. k: texels an atlas row (pack_factor's, through
+    FAST_ROWS); maps: a key of MAPS."""
     mesh, mat = sphere_mesh(n_tri, seed=seed, tex=32)
+    mat.update({name: False for name in MAPS[maps]})
     tm, tmat = torch_mesh_material(mesh, mat)
     if not textured:
         tmat = TMaterial.default("cpu")
@@ -37,17 +49,20 @@ def _convert_inputs(n_tri=400, res=48, textured=True, atlas=None, seed=0):
     real = TF.fragment_apply
 
     def spy(records, tapsT, metaT, *args, **kw):
-        seen.update(records=records, tapsT=tapsT, metaT=metaT, args=args)
+        seen.update(records=records, tapsT=gathered_taps(tapsT, kw),
+                    atlasT=tapsT, rows=kw.get("rows"), metaT=metaT,
+                    args=args)
         return real(records, tapsT, metaT, *args, **kw)
 
     cfg = TC.ConversionConfig(resolution=res, layers=6)
     lo, hi = tm.bbox()
-    pack = TC.pack_atlas(tmat, precision=atlas) if atlas else None
-    TF.fragment_apply = spy
+    fast_rows = TF.FAST_ROWS
+    TF.fragment_apply, TF.FAST_ROWS = spy, K_FAST_ROWS[k]
     try:
+        pack = TC.pack_atlas(tmat, precision=atlas) if atlas else None
         TC.convert(tm, tmat, lo, hi, cfg, atlas=pack)
     finally:
-        TF.fragment_apply = real
+        TF.fragment_apply, TF.FAST_ROWS = real, fast_rows
     return seen
 
 
@@ -86,6 +101,65 @@ def test_fragment_apply_plain_matches(textured, atlas):
     diff = np.abs(out[:19, live] - ref[:19, live]).max()
     print(f"K2 plain vs JAX (textured={textured}, atlas={atlas}): {diff:.3g}")
     assert diff <= 2e-5
+
+
+@pytest.mark.parametrize("atlas,k,maps", [
+    (atlas, k, "all") for atlas in (None, "bf16") for k in (1, 2, 4)]
+    + [(atlas, 2, maps) for atlas in (None, "bf16")
+       for maps in ("base", "normal", "mr")])
+def test_fragment_apply_rows_matches(atlas, k, maps):
+    """K2 as the conversion calls it, reading the tap atlas by K1's rows:
+    bit-equal to the same call on atlasT.index_select(1, rows) (the taps
+    gathered first, as the JAX package does), and against the JAX
+    fragment_apply on atlasT[:, rows] valid exact, every float within 2e-5
+    on the live slots (test_fragment_apply_plain_matches' bounds). f32
+    atlases (the conversion's own) and packed ones (bf16 pairs, a prebuilt
+    PackedAtlas), k texels an atlas row, each map present or absent."""
+    s = _convert_inputs(atlas=atlas, k=k, maps=maps)
+    res, geom, kk, hb, hn, hm, packed = s["args"]
+    assert kk == k and packed == (atlas == "bf16")
+    assert [not f for f in (hb, hn, hm)] == [
+        n in MAPS[maps] for n in ("has_base_color", "has_normal",
+                                  "has_metallic_roughness")]
+    records, atlasT, rows, metaT = (s[n] for n in ("records", "atlasT",
+                                                   "rows", "metaT"))
+    assert rows.dtype == torch.int32 and rows.shape == (metaT.shape[1],)
+    assert atlasT.shape[0] == k * 40 // (2 if packed else 1)
+    args = (res, geom, k, hb, hn, hm, packed)
+    out, _ = TF.fragment_apply(records, atlasT, metaT, *args, rows=rows)
+    first, _ = TF.fragment_apply(records, atlasT.index_select(1, rows),
+                                 metaT, *args)
+    assert torch.equal(out.view(torch.int32), first.view(torch.int32))
+    ref, _ = jax.jit(lambda r, t, m: JF.fragment_apply(
+        r, t, m, res, geom, k, hb, hn, hm, 0, False, packed))(
+        records.numpy(), atlasT.numpy()[:, rows.numpy()], metaT.numpy())
+    ref = np.asarray(ref)
+    out = out.numpy()
+    np.testing.assert_array_equal(out[19], ref[19])
+    live = ref[19] > 0
+    assert live.sum() > 1000
+    diff = np.abs(out[:19, live] - ref[:19, live]).max()
+    print(f"K2 with rows vs JAX (atlas={atlas}, k={k}, maps={maps}): "
+          f"{diff:.3g}")
+    assert diff <= 2e-5
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_convert_k_matches(k, monkeypatch):
+    """The textured conversion with k texels an atlas row (both packages'
+    pack_factor steered by FAST_ROWS): the same splats as the JAX convert,
+    K2 reading the atlas by K1's rows."""
+    mesh, mat = sphere_mesh(400, seed=20 + k, tex=32)
+    jm, jmat = jax_mesh_material(mesh, mat)
+    tm, tmat = torch_mesh_material(mesh, mat)
+    monkeypatch.setattr(TF, "FAST_ROWS", K_FAST_ROWS[k])
+    monkeypatch.setattr(JF, "FAST_ROWS", K_FAST_ROWS[k])
+    assert TF.pack_factor(32 * 32) == JF.pack_factor(32 * 32) == k
+    cfg = dict(resolution=56, layers=6)
+    ts = TC.convert(tm, tmat, *tm.bbox(), TC.ConversionConfig(**cfg))
+    js = JC.convert(jm, jmat, *jm.bbox(), JC.ConversionConfig(**cfg))
+    assert int(ts.count()) > 1000
+    _compare_splats(ts, js)
 
 
 def _compare_splats(ts, js):

@@ -18,7 +18,7 @@ from mesh2splat_torch.render import composite as TCOMP
 from mesh2splat_torch.types import Material as TMaterial
 from mesh2splat_torch.types import make_camera
 from torch_parity import (SLOT_CASES, SLOT_GEOM, adversarial_slots,
-                          slot_records, sphere_mesh)
+                          gathered_taps, slot_records, sphere_mesh)
 
 pytestmark = pytest.mark.gpu
 
@@ -32,19 +32,24 @@ def cuda():
 
 
 def _slot_inputs(device, atlas="bf16"):
+    """What a textured conversion hands K2 (atlas: a PackedAtlas's
+    precision, None for the conversion's own f32 atlas)."""
     mesh, mat = sphere_mesh(800, seed=1, tex=64)
     tm, tmat = state.mesh(mesh, device), state.material(mat, device)
     seen = {}
     real = TF.fragment_apply
 
     def spy(records, tapsT, metaT, *args, **kw):
-        seen.update(records=records, tapsT=tapsT, metaT=metaT, args=args)
+        seen.update(records=records, tapsT=gathered_taps(tapsT, kw),
+                    atlasT=tapsT, rows=kw.get("rows"), metaT=metaT,
+                    args=args)
         return real(records, tapsT, metaT, *args, **kw)
 
     TF.fragment_apply = spy
     try:
         TC.convert(tm, tmat, *tm.bbox(), TC.ConversionConfig(96, 6),
-                   atlas=TC.pack_atlas(tmat, precision=atlas))
+                   atlas=TC.pack_atlas(tmat, precision=atlas)
+                   if atlas else None)
     finally:
         TF.fragment_apply = real
     return seen
@@ -195,8 +200,8 @@ def test_kernel_k2_local_matches_plain(cuda, textured):
     real = TF.fragment_apply
 
     def spy(records, tapsT, metaT, *args, **kw):
-        seen.update(records=records, tapsT=tapsT, metaT=metaT.clone(),
-                    args=args, **kw)
+        seen.update(records=records, tapsT=gathered_taps(tapsT, kw),
+                    metaT=metaT.clone(), args=args, **kw)
         return real(records, tapsT, metaT, *args, **kw)
 
     TF.fragment_apply = spy
@@ -225,6 +230,115 @@ def test_kernel_k2_local_matches_plain(cuda, textured):
     assert torch.equal(m_k, m_p) and torch.equal(m_2, m_k)
     assert _bits_equal(out_k, out_p) and _bits_equal(out_2, out_k)
     assert int((out_k[19] > 0).sum()) > 10000
+    torch.cuda.synchronize()
+
+
+def _k2_rows_runs(rec, atlas, meta, rows, kw):
+    """K2 reading atlas (f32 or packed, field-major) by rows, in both
+    layouts the kernel reads, against its plain version (index_select, then
+    the plain math): True where every run is bit-equal to the plain output,
+    a second run and the rows-less kernel on the gathered taps included."""
+    ref = TF.fragment_apply_plain(rec, atlas, meta.clone(), rows=rows, **kw)
+    gathered = atlas.index_select(1, rows)
+    runs = [kernels.fragment_apply(rec, gathered, meta.clone(), **kw)]
+    for a in (atlas, atlas.T.contiguous().T):   # field-major, row-major
+        runs += [kernels.fragment_apply(rec, a, meta.clone(), rows=rows,
+                                        **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    return all(_bits_equal(r, ref) for r in runs), ref
+
+
+@pytest.mark.parametrize("atlas,k", [("stack", 1), ("stack", 2), ("f32", 4),
+                                     ("bf16", 1), ("bf16", 2), ("bf16", 4)])
+def test_kernel_k2_rows_matches_plain(cuda, atlas, k, monkeypatch):
+    """K2 as the conversion calls it (the tap atlas and K1's rows; "stack":
+    the conversion's own f32 atlas, else a prebuilt PackedAtlas), k texels
+    an atlas row (through pack_factor's FAST_ROWS), and on the same atlas
+    with adversarial rows (every slot on column 0, every slot on the last
+    column, random columns): bit-equal to the plain version, to a second
+    run, to the rows-less kernel on the gathered taps, in both atlas
+    layouts. The slots use sub-texel groups 0 and k - 1 (for packed k = 2,
+    the high and the low halves of the words)."""
+    monkeypatch.setattr(TF, "FAST_ROWS", {1: TF.FAST_ROWS, 2: 3000,
+                                          4: 1500}[k])
+    s = _slot_inputs(cuda, None if atlas == "stack" else atlas)
+    res, geom, kk, hb, hn, hm, packed = s["args"]
+    assert kk == k and packed == (atlas == "bf16")
+    rec, A, meta, rows = s["records"], s["atlasT"], s["metaT"], s["rows"]
+    kw = dict(res=res, geom=geom, k=k, has_base=hb, has_normal=hn,
+              has_mr=hm, taps_packed=packed)
+    g = TF._gather_rec(rec, meta)
+    su = TF._slot_uv(g, meta, res)
+    sub = TF._tap_index(su["uu"], su["vv"], g[TF.REC["mid"]],
+                        g[TF.REC["lod"]], geom, k)[1]
+    assert {0, k - 1} <= set(sub.unique().tolist())
+    ok, ref = _k2_rows_runs(rec, A, meta, rows, kw)
+    assert ok and int((ref[19] > 0).sum()) > 10000
+    n = A.shape[1]
+    rng = np.random.default_rng(k)
+    for r in (torch.zeros_like(rows), torch.full_like(rows, n - 1),
+              torch.from_numpy(rng.integers(0, n, rows.shape[0]).astype(
+                  np.int32)).to(cuda)):
+        assert _k2_rows_runs(rec, A, meta, r, kw)[0]
+
+
+# 3,001 and 10,007 slots are no multiple of a block's slots; "unit" (one
+# slot a triangle) and "sparse_tris" (ids that skip 50-500) put more
+# triangles in a block than it stages
+@pytest.mark.parametrize("case,cap,packed", [
+    (case, cap, packed) for case in ("unit", "sparse_tris", "mixed")
+    for cap in (3001, 10007) for packed in (False, True)])
+def test_kernel_k2_rows_adversarial(cuda, case, cap, packed):
+    """K2 with every map, reading a random k = 4 atlas by random rows, on
+    hand-built slot tables: bit-equal to the plain version, to a second run
+    and to the rows-less kernel on the gathered taps, in both layouts."""
+    _, _, meta = adversarial_slots(case, cap, seed=cap)
+    rng = np.random.default_rng(cap)
+    rec = torch.from_numpy(slot_records(int(meta[0].max()) + 1, 64, seed=7,
+                                        attrs=True)).to(cuda)
+    rec[54:58] = rec[54:58].abs()   # colour factors
+    n_cols = 1280   # SLOT_GEOM's two levels at k = 4
+    taps = rng.uniform(0, 1, (160, n_cols)).astype(np.float32)
+    atlas = torch.from_numpy(taps).to(cuda)
+    if packed:
+        hi = atlas[:80].to(torch.bfloat16).float().view(torch.int32)
+        lo = atlas[80:].to(torch.bfloat16).float().view(torch.int32)
+        atlas = ((hi & -65536) | ((lo >> 16) & 0xFFFF)).contiguous()
+    m = torch.from_numpy(meta).to(cuda)
+    kernels.texel_rows(rec, m, res=64, geom=SLOT_GEOM, k=4, n_rows=n_cols)
+    rows = torch.from_numpy(rng.integers(0, n_cols, cap).astype(
+        np.int32)).to(cuda)
+    kw = dict(res=64, geom=SLOT_GEOM, k=4, has_base=True, has_normal=True,
+              has_mr=True, taps_packed=packed)
+    ok, ref = _k2_rows_runs(rec, atlas, m, rows, kw)
+    assert ok and int((ref[19] > 0).sum()) >= cap // 4
+
+
+def test_fragment_apply_wrapper_rejects(cuda):
+    """K2 with rows takes (cap,) int32 CUDA rows and an atlas of k*40 f32
+    (k*20 int32 packed) fields, field-major or row-major: anything else
+    raises ValueError and launches nothing."""
+    _, _, meta = adversarial_slots("mixed", 3001, seed=1)
+    rec = torch.from_numpy(slot_records(int(meta[0].max()) + 1, 64,
+                                        attrs=True)).to(cuda)
+    m = torch.from_numpy(meta).to(cuda)
+    atlas = torch.zeros((160, 1280), device=cuda)
+    rows = torch.zeros(3001, dtype=torch.int32, device=cuda)
+    kw = dict(res=64, geom=SLOT_GEOM, k=4, has_base=True, has_normal=True,
+              has_mr=True, taps_packed=False)
+    before = dict(kernels.launches)
+    for a, r, extra, what in (
+            (atlas, rows.long(), {}, "dtype"),
+            (atlas, rows[:3000], {}, "shape"),
+            (atlas, rows.cpu(), {}, "CUDA tensor"),
+            (atlas[:80], rows, {}, "shape"),
+            (atlas.int(), rows, {}, "dtype"),
+            (atlas, rows, {"taps_packed": True}, "dtype"),
+            (atlas[:, ::2], rows, {}, "contiguous"),
+            (atlas, None, {}, "slots")):
+        with pytest.raises(ValueError, match=what):
+            kernels.fragment_apply(rec, a, m, rows=r, **{**kw, **extra})
+    assert kernels.launches == before
     torch.cuda.synchronize()
 
 
@@ -542,6 +656,25 @@ def test_slice_cuda_matches_cpu(cuda):
     assert torch.equal(outs[0][0], outs[1][0])
     for a, b in zip(outs[0][1:], outs[1][1:]):
         assert float((a - b).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("res", [96, 100])
+def test_convert_odd_resolution_cuda_matches_cpu(cuda, res):
+    """The conversion at a resolution whose reciprocal is inexact: the card
+    (its torch row spans and K1/K2) gives the CPU's splats bit for bit
+    (a division by res must stay one IEEE division on the card, where
+    PyTorch would multiply by the reciprocal of a Python scalar)."""
+    mesh, mat = sphere_mesh(800, seed=res, tex=64)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        tm, tmat = state.mesh(mesh, dev), state.material(mat, dev)
+        cfg = TC.calibrate(tm, *tm.bbox(), TC.ConversionConfig(res, 6))
+        sp = TC.convert(tm, tmat, *tm.bbox(), cfg)
+        outs.append([getattr(sp, f).cpu() for f in (
+            "valid", "pos", "color", "scale", "normal", "quat", "pbr")])
+    assert int(outs[1][0].sum()) > 10000
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def _cubemap_pairs(device):

@@ -31,8 +31,8 @@ from mesh2splat_torch.ops import fragment as TF
 from mesh2splat_torch.ops import segments as TS
 from mesh2splat_torch.types import Material as TMaterial
 from torch_parity import (SLOT_CASES, SLOT_GEOM, adversarial_slots,
-                          assert_rows_close, jax_mesh_material, slot_records,
-                          sphere_mesh, torch_mesh_material)
+                          assert_rows_close, gathered_taps, jax_mesh_material,
+                          slot_records, sphere_mesh, torch_mesh_material)
 
 CAPS = (10007, 12288)   # not a multiple of 2048 or of a CUDA block; one is
 
@@ -192,7 +192,8 @@ def _local_mode_inputs(case):
         real = TF.fragment_apply
 
         def spy(records, tapsT, metaT, *args, **kw):
-            seen.update(records=records, tapsT=tapsT, args=args)
+            seen.update(records=records, tapsT=gathered_taps(tapsT, kw),
+                        args=args)
             return real(records, tapsT, metaT, *args, **kw)
 
         TF.fragment_apply = spy

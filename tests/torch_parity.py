@@ -29,6 +29,14 @@ def assert_rows_close(got, ref, rel, what=""):
     assert not bad.any(), (what, diff[bad], scale[bad])
 
 
+def gathered_taps(tapsT, kw):
+    """The taps a fragment_apply call shades with, one column a slot: tapsT
+    itself, or, when the call passes K1's rows, the atlas columns they
+    name."""
+    rows = kw.get("rows")
+    return tapsT if rows is None else tapsT.index_select(1, rows)
+
+
 def sphere_mesh(n_tri=600, seed=0, tex=32, uv_scale=0.25):
     """A perturbed lat-long sphere (bench.py's workload shape at small size)
     with base-colour, normal and metallic-roughness textures, as numpy."""
