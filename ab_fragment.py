@@ -1,19 +1,18 @@
 #!/usr/bin/env python3
-"""K2 (kernels/csrc/fragment.cu) in several builds, against each other and
-against another checkout's K2, on chip_smoke.py's full-size inputs, in one
-call on one CUDA card.
+"""K2 (kernels/csrc/fragment.cu) of this checkout against another
+checkout's K2, on chip_smoke.py's full-size inputs, in one call on one CUDA
+card.
 
     python3 ab_fragment.py [--parent DIR] [--reps 2] [--out FILE]
-                           [NAME=FLAGS ...]
 
-Each NAME=FLAGS builds this checkout's fragment.cu with the given -D flags
-(its K2_* macros, e.g. "spt4=-DK2_SPT=4 -DK2_OUT_VEC=0"); "default=" is the
-source as it stands. --parent DIR builds DIR's fragment.cu, a K2 that takes
-the taps gathered first (timed beside the index_select that gathers them).
-One nvcc process a build, all started together.
+Builds this checkout's fragment.cu and, with --parent DIR, the fragment.cu
+of the checkout in DIR, a K2 that takes the taps gathered first (timed
+beside the index_select that gathers them); one nvcc process each, started
+together. Unpack a commit's kernels for DIR with `git archive COMMIT
+mesh2splat_torch/kernels/csrc | tar -x -C DIR`.
 
 Inputs: the K2 calls of the textured and of the untextured conversion of
-bench.py's sphere at resolution 512 (chip_smoke.synth_primitive). Every
+bench.py's sphere at resolution 512 (chip_smoke.synth_primitive). Each
 build is checked bit-equal to the plain version on each input, then timed
 by CUDA events (chip_smoke.event_ms, 20 calls) on: the textured call
 reading the atlas by K1's rows, field-major and row-major (each layout
@@ -44,15 +43,14 @@ _PARENT_ARGS = ("P", "L", "P", "P", "L", "I", "G", "I", "I", "I", "I", "I",
 
 
 def build_all(builds):
-    """{name: (library path, ptxas lines)}; builds: {name: (source, flags)}."""
+    """{name: (library path, ptxas lines)}; builds: {name: source}."""
     from mesh2splat_torch.kernels import build
 
     AB_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (src, flags) in builds.items():
+    for name, src in builds.items():
         out = AB_DIR / f"lib_{name}.so"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, *flags, "-o", str(out),
-               str(src)]
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        out)
@@ -75,7 +73,6 @@ def main():
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--out", type=pathlib.Path,
                     default=ROOT / "chiprun_out" / "ab_fragment.json")
-    ap.add_argument("builds", nargs="*", default=["default="])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_fragment: needs a CUDA card")
@@ -87,19 +84,16 @@ def main():
     from mesh2splat_torch.ops import fragment as TF
 
     src = ROOT / "mesh2splat_torch" / "kernels" / "csrc" / "fragment.cu"
-    builds = {}
-    for spec in args.builds:
-        name, _, flags = spec.partition("=")
-        builds[name] = (src, flags.split())
+    builds = {"this": src}
     if args.parent:
         builds["parent"] = (args.parent / "mesh2splat_torch" / "kernels" /
-                            "csrc" / "fragment.cu", [])
+                            "csrc" / "fragment.cu")
     t0 = time.perf_counter()
     libs = build_all(builds)
     print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, (_, lines) in libs.items():
-        print(f"-- {name}: {' '.join(builds[name][1])}")
+        print(f"-- {name}: {builds[name]}")
         for ln in lines:
             print(f"   {ln}")
 
@@ -195,7 +189,7 @@ def main():
             for mode, ts in modes.items()) + f" ms ({smi})", flush=True)
     result = {"card": smi, "slots": meta.shape[1],
               "slots_untextured": meta_u.shape[1],
-              "flags": {n: " ".join(b[1]) for n, b in builds.items()},
+              "sources": {n: str(b) for n, b in builds.items()},
               "ptxas": {n: lines for n, (_, lines) in libs.items()},
               "ms": times}
     args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -483,8 +483,10 @@ def fullest_alone(torch, starts):
 
 PTXAS_ENTRIES = (   # mangled-name piece -> kernel row
     ("texel_rows_kernel", "texel_rows"),
-    ("fragment_kernelILb0E", "fragment_apply"),
-    ("fragment_kernelILb1E", "fragment_apply_local"),
+    # K2 <LOCAL, ROW>: the main path reads a row-major atlas, the
+    # untextured path (local mode) no atlas
+    ("fragment_kernelILb0ELb1E", "fragment_apply"),
+    ("fragment_kernelILb1ELb0E", "fragment_apply_local"),
     ("composite_kernelILb1E", "composite_albedo"),
     ("composite_kernelILb0E", "composite_full"),
     ("composite_bwd_kernelILb1E", "composite_bwd_albedo"),

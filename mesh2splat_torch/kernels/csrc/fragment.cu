@@ -27,58 +27,34 @@
 // Bound on the H100: bytes by the roofline's count (per slot its meta
 // floats, its row index, the atlas groups the run touches, 20 floats
 // written), but a slot's arithmetic is long and exact (seven IEEE
-// divisions, four IEEE reciprocal square roots with a normal map, the
-// 64-bit addressing of 58 record fields), so the instruction count comes
-// first, as in K1. Design: each thread takes SPT consecutive slots with
-// vector meta loads and stores; each block stages the 58 record fields of
-// its triangle range in shared memory, slot-major, once (slots are sorted
-// by triangle, ~78 slots a triangle at bench size), so a slot reads them
-// with 32-bit shared loads at fixed offsets. A block whose range is wider
-// than TRI_CAP triangles, or whose slots leave it (keys that decrease),
-// reads the records through L1 by triangle id instead. In LOCAL each warp
-// of 32*SPT slots scans alone; the search for its first slot's segment
-// start reads keys the warps before it have just read, mostly from cache.
-// The TPU's record-window DMA and one-hot MXU select are not carried over.
-#include <cstring>
-#include <type_traits>
-
+// divisions, four IEEE reciprocal square roots with a normal map), and
+// what holds the kernel is latency: each slot's chain of dependent loads
+// and divisions. Design: one slot a thread in 128-thread blocks, with
+// registers capped at 64 so that 8 blocks share an SM; each block stages
+// the 58 record fields of its triangle range in shared memory, slot-major,
+// once (slots are sorted by triangle, ~78 slots a triangle at bench size),
+// so a slot reads them by 32-bit shared loads at fixed offsets instead of
+// 58 global loads with 64-bit addresses. A block whose range is wider than
+// TRI_CAP triangles, or whose slots leave it (keys that decrease), reads
+// the records through L1 by triangle id instead. Outputs are written with
+// streaming stores. (PERF.md section 6 gives the variants measured: 2 or 4
+// slots a thread with vector meta loads and stores, no staging, other
+// block sizes and register caps, plain stores.) In LOCAL each warp of 32
+// slots scans alone; the search for its first slot's segment start reads
+// keys the warps before it have just read, mostly from cache. The TPU's
+// record-window DMA and one-hot MXU select are not carried over.
 #include "slot_common.cuh"
-
-#ifndef K2_SPT
-#define K2_SPT 1
-#endif
-#ifndef K2_STAGE
-#define K2_STAGE 1
-#endif
-#ifndef K2_TRI_CAP
-#define K2_TRI_CAP 64
-#endif
-#ifndef K2_OUT_VEC
-#define K2_OUT_VEC 1
-#endif
-#ifndef K2_THREADS
-#define K2_THREADS 128
-#endif
-#ifndef K2_MIN_BLOCKS
-#define K2_MIN_BLOCKS 8
-#endif
-#ifndef K2_STCS
-#define K2_STCS 1
-#endif
 
 namespace {
 
-constexpr int THREADS = K2_THREADS;
-constexpr int SPT = K2_SPT;                // slots a thread: 1, 2 or 4
-constexpr int WARP_SLOTS = 32 * SPT;
-constexpr int BLOCK_SLOTS = THREADS * SPT;
-constexpr int TAPS_C = 10;      // channels per tap: rgba | normal xyz | mr rgb
+constexpr int THREADS = 128;     // one slot a thread
+constexpr int MIN_BLOCKS = 8;    // registers capped at 64: 8 blocks an SM
+constexpr int TAPS_C = 10;       // channels per tap: rgba | normal xyz | mr rgb
 constexpr int GROUP = 4 * TAPS_C;          // fields of one sub-texel's taps
 constexpr int OUT_W = 20;
-constexpr int TRI_CAP = K2_TRI_CAP;        // triangles a block stages
-constexpr int REC_S = 60;       // staged floats a triangle: 58, 16-B rows
+constexpr int TRI_CAP = 64;      // triangles a block stages
+constexpr int REC_S = 60;        // staged floats a triangle: 58, 16-B rows
 
-static_assert(SPT == 1 || SPT == 2 || SPT == 4, "SPT is 1, 2 or 4");
 static_assert(R_USED <= REC_S, "staged record row too short");
 
 struct Flags {
@@ -107,54 +83,6 @@ struct RecGlobal {
     return __ldg(p + (int64_t)f * t_pad);
   }
 };
-
-template <int N> struct VecT;
-template <> struct VecT<1> { using F = float; using I = int32_t; };
-template <> struct VecT<2> { using F = float2; using I = int2; };
-template <> struct VecT<4> { using F = float4; using I = int4; };
-
-// SPT consecutive values of one row from slot `base` (0 past cap).
-template <bool VEC, typename T>
-__device__ __forceinline__ void load_slots(const T* __restrict__ row,
-                                           int32_t base, int32_t cap,
-                                           T (&v)[SPT]) {
-  using V = typename std::conditional<std::is_same<T, float>::value,
-                                      typename VecT<SPT>::F,
-                                      typename VecT<SPT>::I>::type;
-  if (VEC && base + SPT <= cap) {
-    const V x = __ldg(reinterpret_cast<const V*>(row + base));
-    memcpy(v, &x, sizeof(x));
-    return;
-  }
-#pragma unroll
-  for (int s = 0; s < SPT; ++s)
-    v[s] = base + s < cap ? __ldg(row + base + s) : T(0);
-}
-
-// SPT consecutive values of one row from slot `base` (none past cap).
-template <bool VEC>
-__device__ __forceinline__ void store_slots(float* __restrict__ row,
-                                            int32_t base, int32_t cap,
-                                            const float (&v)[SPT]) {
-  using V = typename VecT<SPT>::F;
-  if (VEC && base + SPT <= cap) {
-    V x;
-    memcpy(&x, v, sizeof(x));
-    if (K2_STCS)
-      __stcs(reinterpret_cast<V*>(row + base), x);
-    else
-      *reinterpret_cast<V*>(row + base) = x;
-    return;
-  }
-#pragma unroll
-  for (int s = 0; s < SPT; ++s)
-    if (base + s < cap) {
-      if (K2_STCS)
-        __stcs(row + base + s, v[s]);
-      else
-        row[base + s] = v[s];
-    }
-}
 
 __device__ __forceinline__ float hi_half(uint32_t w) {
   return __uint_as_float(w & 0xFFFF0000u);
@@ -318,112 +246,79 @@ __device__ __forceinline__ int32_t clamp_tri(float t, int64_t t_pad) {
 }
 
 // LOCAL: `local` computed and written to meta row 2, which is then not
-// read; otherwise read from row 2. ROW: the atlas is row-major. VEC: every
-// meta row, `rows` and the output start on SPT * 4 bytes and cap % SPT == 0.
-template <bool LOCAL, bool ROW, bool VEC>
-__global__ void __launch_bounds__(THREADS, K2_MIN_BLOCKS)
+// read; otherwise read from row 2. ROW: the atlas is row-major.
+template <bool LOCAL, bool ROW>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     fragment_kernel(const float* __restrict__ records, int64_t t_pad,
                     Taps tp, float* __restrict__ meta, int32_t cap, int res,
                     M2SGeom geom, Flags fl, float* __restrict__ out) {
-  __shared__ __align__(16) float s_rec[K2_STAGE ? TRI_CAP * REC_S : 1];
+  __shared__ __align__(16) float s_rec[TRI_CAP * REC_S];
   const float* tri_row = meta;
   const float* row_row = meta + cap;
   float* local_row = meta + 2 * (int64_t)cap;
   const float* live_row = meta + 3 * (int64_t)cap;
-  const int lane = threadIdx.x & 31;
-  const int32_t b0 = blockIdx.x * BLOCK_SLOTS;   // the block's first slot
-  const int32_t w0 = b0 + (threadIdx.x >> 5) * WARP_SLOTS;
-  const int32_t base = w0 + lane * SPT;
+  const int32_t b0 = blockIdx.x * THREADS;   // the block's first slot
+  const int32_t i = b0 + threadIdx.x;
+  const bool in = i < cap;
 
-  float tri[SPT], row[SPT], live[SPT], local[SPT];
-  load_slots<VEC>(tri_row, base, cap, tri);
-  load_slots<VEC>(row_row, base, cap, row);
-  load_slots<VEC>(live_row, base, cap, live);
-  if (!LOCAL) load_slots<VEC>((const float*)local_row, base, cap, local);
-  int32_t col[SPT];
-  if (tp.atlas != nullptr && tp.rows != nullptr) {
-    load_slots<VEC>(tp.rows, base, cap, col);
-  } else {
-#pragma unroll
-    for (int s = 0; s < SPT; ++s) col[s] = base + s;
-  }
+  const float tri = in ? __ldg(tri_row + i) : 0.0f;
+  const float row = in ? __ldg(row_row + i) : 0.0f;
+  const float live = in ? __ldg(live_row + i) : 0.0f;
+  float local = !LOCAL && in ? __ldg(local_row + i) : 0.0f;
+  const int32_t t = clamp_tri(tri, t_pad);
+  int64_t col = i;
+  if (tp.atlas != nullptr && tp.rows != nullptr && in)
+    col = min(max(__ldg(tp.rows + i), 0), tp.n_cols - 1);
 
   // the block's triangle range, staged when it is narrow and holds every
   // slot of the block (block-uniform)
   const int32_t t_lo = clamp_tri(__ldg(tri_row + b0), t_pad);
   const int32_t t_hi =
-      clamp_tri(__ldg(tri_row + min(b0 + BLOCK_SLOTS, cap) - 1), t_pad);
-  bool staged = false;
-  if (K2_STAGE) {
-    const int32_t n = t_hi - t_lo + 1;
-    const bool fits = t_lo <= t_hi && n <= TRI_CAP;
-    bool inside = true;
-#pragma unroll
-    for (int s = 0; s < SPT; ++s) {
-      const int32_t t = clamp_tri(tri[s], t_pad);
-      if (base + s < cap) inside = inside && t >= t_lo && t <= t_hi;
+      clamp_tri(__ldg(tri_row + min(b0 + THREADS, cap) - 1), t_pad);
+  const int32_t n = t_hi - t_lo + 1;
+  const bool fits = t_lo <= t_hi && n <= TRI_CAP;
+  if (fits) {
+    for (int e = threadIdx.x; e < R_USED * n; e += THREADS) {
+      const int fld = e / n;
+      const int k = e - fld * n;
+      s_rec[k * REC_S + fld] =
+          __ldg(records + (int64_t)fld * t_pad + t_lo + k);
     }
-    if (fits) {
-      for (int e = threadIdx.x; e < R_USED * n; e += THREADS) {
-        const int fld = e / n;
-        const int t = e - fld * n;
-        s_rec[t * REC_S + fld] =
-            __ldg(records + (int64_t)fld * t_pad + t_lo + t);
-      }
-    }
-    staged = __syncthreads_and(fits && inside);
   }
+  const bool staged =
+      __syncthreads_and(fits && (!in || (t >= t_lo && t <= t_hi)));
 
   if constexpr (LOCAL) {
     // whole warps scan; a warp past cap has nothing to scan
-    if (w0 < cap) warp_slot_local<SPT>(tri_row, row_row, w0, cap, tri, row,
-                                       local);
-    store_slots<VEC>(local_row, base, cap, local);
+    const int32_t w0 = i - (int32_t)(threadIdx.x & 31);
+    if (w0 < cap) {
+      const float kt[1] = {tri}, kr[1] = {row};
+      float loc[1];
+      warp_slot_local<1>(tri_row, row_row, w0, cap, kt, kr, loc);
+      local = loc[0];
+    }
+    if (in) local_row[i] = local;
   }
+  if (!in) return;
 
-  // OUT_VEC: the SPT slots' outputs are kept and stored as vectors;
-  // otherwise each slot's are stored as soon as they are computed
-  float o[K2_OUT_VEC ? SPT : 1][OUT_W];
+  float o[OUT_W];
+  if (staged)
+    shade<ROW>(RecShared{s_rec + (t - t_lo) * REC_S}, row, local, live, res,
+               geom, fl, tp, col, o);
+  else
+    shade<ROW>(RecGlobal{records + t, t_pad}, row, local, live, res, geom,
+               fl, tp, col, o);
+  // streaming stores: the output is not read again by this kernel
 #pragma unroll
-  for (int s = 0; s < SPT; ++s) {
-    if (base + s >= cap) continue;
-    float(&os)[OUT_W] = o[K2_OUT_VEC ? s : 0];
-    const int32_t t = clamp_tri(tri[s], t_pad);
-    const int64_t c = tp.rows != nullptr
-                          ? (int64_t)min(max(col[s], 0), tp.n_cols - 1)
-                          : (int64_t)col[s];
-    if (staged)
-      shade<ROW>(RecShared{s_rec + (t - t_lo) * REC_S}, row[s], local[s],
-                 live[s], res, geom, fl, tp, c, os);
-    else
-      shade<ROW>(RecGlobal{records + t, t_pad}, row[s], local[s], live[s],
-                 res, geom, fl, tp, c, os);
-    if (!K2_OUT_VEC) {
-#pragma unroll
-      for (int r = 0; r < OUT_W; ++r) out[(int64_t)r * cap + base + s] = os[r];
-    }
-  }
-  if (K2_OUT_VEC) {
-#pragma unroll
-    for (int r = 0; r < OUT_W; ++r) {
-      float v[SPT];
-#pragma unroll
-      for (int s = 0; s < SPT; ++s) v[s] = o[K2_OUT_VEC ? s : 0][r];
-      store_slots<VEC>(out + (int64_t)r * cap, base, cap, v);
-    }
-  }
+  for (int r = 0; r < OUT_W; ++r) __stcs(out + (int64_t)r * cap + i, o[r]);
 }
 
 template <bool LOCAL, bool ROW>
-void launch(bool vec, unsigned blocks, cudaStream_t st, const float* records,
+void launch(unsigned blocks, cudaStream_t st, const float* records,
             int64_t t_pad, const Taps& tp, float* meta, int32_t cap, int res,
             const M2SGeom& geom, const Flags& fl, float* out) {
-  if (vec)
-    fragment_kernel<LOCAL, ROW, true><<<blocks, THREADS, 0, st>>>(
-        records, t_pad, tp, meta, cap, res, geom, fl, out);
-  else
-    fragment_kernel<LOCAL, ROW, false><<<blocks, THREADS, 0, st>>>(
-        records, t_pad, tp, meta, cap, res, geom, fl, out);
+  fragment_kernel<LOCAL, ROW><<<blocks, THREADS, 0, st>>>(
+      records, t_pad, tp, meta, cap, res, geom, fl, out);
 }
 
 }  // namespace
@@ -441,28 +336,24 @@ extern "C" int m2s_fragment_apply(const float* records, int64_t t_pad,
   if (cap > 0) {
     const Flags fl{has_base, has_normal, has_mr, packed, k};
     const Taps tp{taps, rows, ld, n_cols};
-    const unsigned blocks = (unsigned)((cap + BLOCK_SLOTS - 1) / BLOCK_SLOTS);
-    const uintptr_t al = SPT * 4;
-    const bool vec = cap % SPT == 0 && (uintptr_t)meta % al == 0 &&
-                     (uintptr_t)out % al == 0 &&
-                     (rows == nullptr || (uintptr_t)rows % al == 0);
+    const unsigned blocks = (unsigned)((cap + THREADS - 1) / THREADS);
     const bool row = taps != nullptr && row_major;
     cudaStream_t st = (cudaStream_t)stream;
     const int32_t c = (int32_t)cap;
     if (local) {
       if (row)
-        launch<true, true>(vec, blocks, st, records, t_pad, tp, meta, c, res,
+        launch<true, true>(blocks, st, records, t_pad, tp, meta, c, res,
                            geom, fl, out);
       else
-        launch<true, false>(vec, blocks, st, records, t_pad, tp, meta, c, res,
+        launch<true, false>(blocks, st, records, t_pad, tp, meta, c, res,
                             geom, fl, out);
     } else {
       if (row)
-        launch<false, true>(vec, blocks, st, records, t_pad, tp, meta, c, res,
+        launch<false, true>(blocks, st, records, t_pad, tp, meta, c, res,
                             geom, fl, out);
       else
-        launch<false, false>(vec, blocks, st, records, t_pad, tp, meta, c,
-                             res, geom, fl, out);
+        launch<false, false>(blocks, st, records, t_pad, tp, meta, c, res,
+                             geom, fl, out);
     }
   }
   return (int)cudaGetLastError();
