@@ -19,7 +19,7 @@ reading the atlas by K1's rows, field-major and row-major (each layout
 made once, outside the timing), and the untextured call in its local
 mode; the builds in turns, forward then backward, reps times. Prints
 each build's ptxas lines and a JSON line of times, also written to FILE
-(default chiprun_out/ab_fragment.json). Needs a card.
+(default build/ab_fragment/ab_fragment.json). Needs a card.
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ def main():
     ap.add_argument("--parent", type=pathlib.Path)
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--out", type=pathlib.Path,
-                    default=ROOT / "chiprun_out" / "ab_fragment.json")
+                    default=AB_DIR / "ab_fragment.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_fragment: needs a CUDA card")
