@@ -1,0 +1,5 @@
+"""Frames completed over the whole window, each synchronised as presented."""
+
+
+def read(run):
+    return run.completed / run.window_s

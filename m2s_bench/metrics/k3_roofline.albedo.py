@@ -1,0 +1,11 @@
+"""K3's share of its roofline: the bound the reference's inputs give
+(``roofline/k3.py``) over K3's device time in the trace, over the window's
+units the reference counted."""
+
+from m2s_bench.harness import HERE, load_file
+from m2s_bench.trace import roofline_share
+
+
+def read(run):
+    counts = load_file(HERE / "roofline" / "k3.py")
+    return roofline_share(run, counts.KERNEL, counts.PATTERN)

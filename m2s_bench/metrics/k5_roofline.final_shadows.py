@@ -1,0 +1,11 @@
+"""K5's share of its roofline: the bound the reference's inputs give
+(``roofline/k5.py``) over K5's device time in the trace, over the window's
+units the reference counted."""
+
+from m2s_bench.harness import HERE, load_file
+from m2s_bench.trace import roofline_share
+
+
+def read(run):
+    counts = load_file(HERE / "roofline" / "k5.py")
+    return roofline_share(run, counts.KERNEL, counts.PATTERN)
