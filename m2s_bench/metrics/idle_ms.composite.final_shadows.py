@@ -1,0 +1,8 @@
+"""Device idle ms a frame while the host's innermost span was
+``m2s.render.composite``: the composite (K3, ``render/tiled.py``)."""
+
+from m2s_bench.spans import idle_ms
+
+
+def read(run):
+    return idle_ms(run, "m2s.render.composite")

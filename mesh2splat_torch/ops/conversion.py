@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..types import Material, Splats, TriangleMesh
+from ..utils.profiling import annotate
 from . import fragment, segments
 from .numerics import div, fma, sqrt
 from .triplanar import triangle_conversion_attrs
@@ -238,35 +239,38 @@ def _expand_slots(mesh, bbox_min, bbox_max, config, ortho_uv=None):
     """Stages 1-3: per-triangle attributes, scanline row expansion and
     row -> texel-slot expansion. ``local`` is None where the mesh packs:
     the kernels compute it from the slots' (tri, row_local) keys."""
-    res = config.resolution
-    cap = config.capacity
-    attrs = _attrs(mesh, bbox_min, bbox_max, ortho_uv)
-    ouv = attrs["ortho_uv"]
-    t = mesh.tri_pos.shape[0]
-    geo, row_tri, row_local, width, row_demand = _row_widths(
-        mesh, ouv, res, config.row_capacity, config.max_texels_per_tri)
+    with annotate("m2s.convert.slots"):
+        res = config.resolution
+        cap = config.capacity
+        attrs = _attrs(mesh, bbox_min, bbox_max, ortho_uv)
+        ouv = attrs["ortho_uv"]
+        t = mesh.tri_pos.shape[0]
+        geo, row_tri, row_local, width, row_demand = _row_widths(
+            mesh, ouv, res, config.row_capacity, config.max_texels_per_tri)
 
-    offsets, total = segments.alloc_slots(width, cap)
-    local = None
-    if t * 4096 < PACKED_KEY_LIMIT:
-        # one monotone packed channel (tri * 4096 + row_local) through cummax
-        packed = segments.fill_value(offsets, width, cap,
-                                     row_tri * 4096 + row_local)
-        packed = torch.clamp(packed, min=0)
-        tri_id_safe = packed >> 12
-        s_row_local = packed & 4095
-    else:
-        _, local, _, ex = segments.expand_to_slots(
-            offsets, width, cap, extra=torch.stack([row_tri, row_local])
+        offsets, total = segments.alloc_slots(width, cap)
+        local = None
+        if t * 4096 < PACKED_KEY_LIMIT:
+            # one monotone packed channel (tri * 4096 + row_local) through
+            # cummax
+            packed = segments.fill_value(offsets, width, cap,
+                                         row_tri * 4096 + row_local)
+            packed = torch.clamp(packed, min=0)
+            tri_id_safe = packed >> 12
+            s_row_local = packed & 4095
+        else:
+            _, local, _, ex = segments.expand_to_slots(
+                offsets, width, cap, extra=torch.stack([row_tri, row_local])
+            )
+            tri_id_safe = torch.clamp(ex[0], min=0)
+            s_row_local = torch.clamp(ex[1], min=0)
+        in_budget = torch.arange(cap, dtype=torch.int32,
+                                 device=ouv.device) < total
+        return dict(
+            attrs=attrs, ouv=ouv, geo=geo, tri_id_safe=tri_id_safe,
+            s_row_local=s_row_local, local=local, in_budget=in_budget,
+            total=total, t=t, row_demand=row_demand, slot_demand=width.sum(),
         )
-        tri_id_safe = torch.clamp(ex[0], min=0)
-        s_row_local = torch.clamp(ex[1], min=0)
-    in_budget = torch.arange(cap, dtype=torch.int32, device=ouv.device) < total
-    return dict(
-        attrs=attrs, ouv=ouv, geo=geo, tri_id_safe=tri_id_safe,
-        s_row_local=s_row_local, local=local, in_budget=in_budget,
-        total=total, t=t, row_demand=row_demand, slot_demand=width.sum(),
-    )
 
 
 def _overflow_stats(ex, config: ConversionConfig) -> dict:
@@ -317,94 +321,98 @@ def _finish_convert(mesh, config, stack, mids, factors, has_base,
                     has_normal, has_mr, ex, atlas: PackedAtlas | None = None):
     """Stage 4: record table, K1, K2 (reading the tap atlas by K1's rows)
     -> Splats."""
-    res = config.resolution
-    cap = config.capacity
-    t = ex["t"]
-    ouv, geo, attrs = ex["ouv"], ex["geo"], ex["attrs"]
-    dev = ouv.device
-    if t >= 1 << 24:
-        raise ValueError(
-            f"{t} triangles exceeds the f32 triangle-id range of the "
-            "fragment kernels (2^24); split the scene into several converts"
-        )
-    if mids is None:
-        mids = torch.zeros((t,), dtype=torch.int32, device=dev)
-    fac_t = factors[mids.long()]
-
-    if atlas is not None:
-        n_levels = len(atlas.geom)
-        th0, tw0 = atlas.geom[0][1], atlas.geom[0][2]
-        if n_levels != len(fragment.mip_dims(th0, tw0, config.use_mips)):
+    with annotate("m2s.convert.fragment"):
+        res = config.resolution
+        cap = config.capacity
+        t = ex["t"]
+        ouv, geo, attrs = ex["ouv"], ex["geo"], ex["attrs"]
+        dev = ouv.device
+        if t >= 1 << 24:
             raise ValueError(
-                f"config.use_mips={config.use_mips} conflicts with the "
-                f"prebuilt atlas ({n_levels} level(s)); rebuild with "
-                f"pack_atlas(material, mips={config.use_mips})"
+                f"{t} triangles exceeds the f32 triangle-id range of the "
+                "fragment kernels (2^24); split the scene into several "
+                "converts"
             )
-    elif stack is not None:
-        th0, tw0 = stack.shape[1], stack.shape[2]
-        n_levels = len(fragment.mip_dims(th0, tw0, config.use_mips))
-    else:
-        n_levels, th0, tw0 = 1, 1, 1
-    lod_t = _triangle_lod(mesh, ouv, res, n_levels, th0, tw0)
+        if mids is None:
+            mids = torch.zeros((t,), dtype=torch.int32, device=dev)
+        fac_t = factors[mids.long()]
 
-    record = torch.cat([
-        ouv.reshape(t, 6),                        # au..cv       (0-5)
-        geo[:, 6:9],                              # tx0 ty0 tw   (6-8)
-        mesh.tri_uv.reshape(t, 6),                # ua..vc       (9-14)
-        mids[:, None].float(),                    # mid          (15)
-        lod_t[:, None],                           # lod          (16)
-        mesh.tri_pos.reshape(t, 9),               # (17-25)
-        mesh.tri_normal.reshape(t, 9),            # (26-34)
-        mesh.tri_tangent.reshape(t, 12),          # (35-46)
-        attrs["quat"],                            # (47-50)
-        attrs["scale"],                           # (51-53)
-        fac_t,                                    # (54-57)
-        torch.zeros((t, fragment.REC_W - 58), device=dev),
-    ], dim=-1)
-    # non-finite fields belong to degenerate triangles, which own no slots
-    record = torch.where(torch.isfinite(record), record, 0.0)
-    t_pad = -(-(t + 128) // 128) * 128
-    records = F.pad(record.T, (0, t_pad - t)).contiguous()  # (REC_W, T_pad)
-    local = ex["local"]
-    metaT = torch.stack([
-        ex["tri_id_safe"], ex["s_row_local"],
-        torch.zeros_like(ex["s_row_local"]) if local is None else local,
-        ex["in_budget"].to(torch.int32),
-    ]).float().contiguous()  # (4, cap) [tri, row_local, local, live]
+        if atlas is not None:
+            n_levels = len(atlas.geom)
+            th0, tw0 = atlas.geom[0][1], atlas.geom[0][2]
+            if n_levels != len(fragment.mip_dims(th0, tw0, config.use_mips)):
+                raise ValueError(
+                    f"config.use_mips={config.use_mips} conflicts with the "
+                    f"prebuilt atlas ({n_levels} level(s)); rebuild with "
+                    f"pack_atlas(material, mips={config.use_mips})"
+                )
+        elif stack is not None:
+            th0, tw0 = stack.shape[1], stack.shape[2]
+            n_levels = len(fragment.mip_dims(th0, tw0, config.use_mips))
+        else:
+            n_levels, th0, tw0 = 1, 1, 1
+        lod_t = _triangle_lod(mesh, ouv, res, n_levels, th0, tw0)
 
-    taps_packed = False
-    if atlas is not None:
-        atlasT, geom, k = atlas.atlasT, atlas.geom, atlas.k
-        taps_packed = atlas.packed
-    elif stack is not None:
-        m, th, tw_tex, _ = stack.shape
-        k = fragment.pack_factor(m * th * tw_tex)
-        atlasT, geom = fragment.build_pair_atlas(stack, k,
-                                                 mips=config.use_mips)
-    if atlas is not None or stack is not None:
-        # K1 also writes each slot's local into metaT's row 2, for K2; K2
-        # reads each slot's taps from the atlas at its row
-        rows_idx = fragment.texel_rows(
-            records, metaT, res=res, geom=geom, k=k, n_rows=atlasT.shape[1],
+        record = torch.cat([
+            ouv.reshape(t, 6),                        # au..cv       (0-5)
+            geo[:, 6:9],                              # tx0 ty0 tw   (6-8)
+            mesh.tri_uv.reshape(t, 6),                # ua..vc       (9-14)
+            mids[:, None].float(),                    # mid          (15)
+            lod_t[:, None],                           # lod          (16)
+            mesh.tri_pos.reshape(t, 9),               # (17-25)
+            mesh.tri_normal.reshape(t, 9),            # (26-34)
+            mesh.tri_tangent.reshape(t, 12),          # (35-46)
+            attrs["quat"],                            # (47-50)
+            attrs["scale"],                           # (51-53)
+            fac_t,                                    # (54-57)
+            torch.zeros((t, fragment.REC_W - 58), device=dev),
+        ], dim=-1)
+        # non-finite fields belong to degenerate triangles, which own no slots
+        record = torch.where(torch.isfinite(record), record, 0.0)
+        t_pad = -(-(t + 128) // 128) * 128
+        # (REC_W, T_pad)
+        records = F.pad(record.T, (0, t_pad - t)).contiguous()
+        local = ex["local"]
+        metaT = torch.stack([
+            ex["tri_id_safe"], ex["s_row_local"],
+            torch.zeros_like(ex["s_row_local"]) if local is None else local,
+            ex["in_budget"].to(torch.int32),
+        ]).float().contiguous()  # (4, cap) [tri, row_local, local, live]
+
+        taps_packed = False
+        if atlas is not None:
+            atlasT, geom, k = atlas.atlasT, atlas.geom, atlas.k
+            taps_packed = atlas.packed
+        elif stack is not None:
+            m, th, tw_tex, _ = stack.shape
+            k = fragment.pack_factor(m * th * tw_tex)
+            atlasT, geom = fragment.build_pair_atlas(stack, k,
+                                                     mips=config.use_mips)
+        if atlas is not None or stack is not None:
+            # K1 also writes each slot's local into metaT's row 2, for K2; K2
+            # reads each slot's taps from the atlas at its row
+            rows_idx = fragment.texel_rows(
+                records, metaT, res=res, geom=geom, k=k,
+                n_rows=atlasT.shape[1],
+            )
+            tapsT = atlasT
+            local_in_kernel = False
+        else:
+            geom, k = ((0, 1, 1, 1),), 1
+            tapsT, rows_idx = torch.zeros((1, 1), device=dev), None  # not read
+            # no K1: K2 computes local, unless stage 3 filled it
+            local_in_kernel = local is None
+
+        outT, _ = fragment.fragment_apply(
+            records, tapsT, metaT, res, tuple(geom), k,
+            has_base, has_normal, has_mr, taps_packed,
+            local_in_kernel=local_in_kernel, rows=rows_idx,
         )
-        tapsT = atlasT
-        local_in_kernel = False
-    else:
-        geom, k = ((0, 1, 1, 1),), 1
-        tapsT, rows_idx = torch.zeros((1, 1), device=dev), None  # not read
-        # no K1: K2 computes local, unless stage 3 filled it
-        local_in_kernel = local is None
-
-    outT, _ = fragment.fragment_apply(
-        records, tapsT, metaT, res, tuple(geom), k,
-        has_base, has_normal, has_mr, taps_packed,
-        local_in_kernel=local_in_kernel, rows=rows_idx,
-    )
-    return Splats(
-        pos=outT[0:3].T, color=outT[3:7].T, scale=outT[7:10].T,
-        normal=outT[10:13].T, quat=outT[13:17].T, pbr=outT[17:19].T,
-        valid=outT[19] > 0.0,
-    )
+        return Splats(
+            pos=outT[0:3].T, color=outT[3:7].T, scale=outT[7:10].T,
+            normal=outT[10:13].T, quat=outT[13:17].T, pbr=outT[17:19].T,
+            valid=outT[19] > 0.0,
+        )
 
 
 def _convert_core(mesh, bbox_min, bbox_max, config, stack, mids, factors,
@@ -458,16 +466,18 @@ def calibrate(mesh, bbox_min, bbox_max, config: ConversionConfig,
               round_to: int = 8192, n_primitives: int = 1) -> ConversionConfig:
     """A config whose row and texel budgets exactly fit this mesh (rounded
     up, capped at res^2 * layers * n_primitives); same splats, lower cost."""
-    hard_cap = (config.resolution * config.resolution * config.layers
-                * max(n_primitives, 1))
+    with annotate("m2s.convert.calibrate"):
+        hard_cap = (config.resolution * config.resolution * config.layers
+                    * max(n_primitives, 1))
 
-    def round_up(n):
-        return min(-(-max(int(n), 1) // round_to) * round_to, hard_cap)
+        def round_up(n):
+            return min(-(-max(int(n), 1) // round_to) * round_to, hard_cap)
 
-    rows = round_up(required_rows(mesh, bbox_min, bbox_max, config))
-    cfg_rows = dataclasses.replace(config, row_capacity_override=rows)
-    cap = round_up(required_slots(mesh, bbox_min, bbox_max, cfg_rows))
-    return dataclasses.replace(cfg_rows, capacity_override=max(cap, round_to))
+        rows = round_up(required_rows(mesh, bbox_min, bbox_max, config))
+        cfg_rows = dataclasses.replace(config, row_capacity_override=rows)
+        cap = round_up(required_slots(mesh, bbox_min, bbox_max, cfg_rows))
+        return dataclasses.replace(cfg_rows,
+                                   capacity_override=max(cap, round_to))
 
 
 def _merge(primitives, shared_bbox):

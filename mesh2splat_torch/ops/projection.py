@@ -15,6 +15,7 @@ from .numerics import fma, sqrt
 from ..types import (
     Camera, RenderMode, SplatFormat, Splats, encode_normal, exponential_depth,
 )
+from ..utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -182,112 +183,118 @@ def project_splats(
     depth_map: optional (H, W) window depth of the mesh prepass (row 0 at
     the bottom); MESH2SPLAT splats with opacity above 0.95 behind it by
     more than 2e-5 are culled."""
-    width, height = camera.width, camera.height
-    # matrix entries as Python floats: each product below is f32 x f32
-    P = camera.view_to_clip.tolist()
-    V = camera.world_to_view.tolist()
+    with annotate("m2s.render.project"):
+        width, height = camera.width, camera.height
+        # matrix entries as Python floats: each product below is f32 x f32
+        P = camera.view_to_clip.tolist()
+        V = camera.world_to_view.tolist()
 
-    px, py, pz = splats.pos[:, 0], splats.pos[:, 1], splats.pos[:, 2]
+        px, py, pz = splats.pos[:, 0], splats.pos[:, 1], splats.pos[:, 2]
 
-    def affine(row, x, y, z):
-        # row . (x, y, z, 1), fused as the reference's arithmetic fuses it
-        return fma(row[2], z, fma(row[0], x, row[1] * y)) + row[3]
+        def affine(row, x, y, z):
+            # row . (x, y, z, 1), fused as the reference's arithmetic fuses it
+            return fma(row[2], z, fma(row[0], x, row[1] * y)) + row[3]
 
-    identity_model = model_to_world is None
-    M, ms, mr = model_frame(model_to_world)
-    if identity_model:
-        wsx, wsy, wsz = px, py, pz
-    else:
-        Ml = M.tolist()
-        wsx, wsy, wsz = (affine(Ml[i], px, py, pz) for i in range(3))
+        identity_model = model_to_world is None
+        M, ms, mr = model_frame(model_to_world)
+        if identity_model:
+            wsx, wsy, wsz = px, py, pz
+        else:
+            Ml = M.tolist()
+            wsx, wsy, wsz = (affine(Ml[i], px, py, pz) for i in range(3))
 
-    vsx, vsy, vsz = (affine(V[i], wsx, wsy, wsz) for i in range(3))
-    cx, cy, cz, cw = (affine(P[i], vsx, vsy, vsz) for i in range(4))
+        vsx, vsy, vsz = (affine(V[i], wsx, wsy, wsz) for i in range(3))
+        cx, cy, cz, cw = (affine(P[i], vsx, vsy, vsz) for i in range(4))
 
-    margin = 1.05 * cw
-    inside = ((cz >= -margin) & (cx >= -margin) & (cx <= margin)
-              & (cy >= -margin) & (cy <= margin))
-    valid = splats.valid & inside
+        margin = 1.05 * cw
+        inside = ((cz >= -margin) & (cx >= -margin) & (cx <= margin)
+                  & (cy >= -margin) & (cy <= margin))
+        valid = splats.valid & inside
 
-    if depth_map is not None and int(splat_format) == 0:
-        # mesh-occlusion test of opaque splats against the depth prepass
-        cw_s = torch.where(cw.abs() < 1e-12, 1e-12, cw)
-        u_px = torch.clamp(((cx / cw_s * 0.5 + 0.5) * width).to(torch.int32),
-                           0, width - 1)
-        v_px = torch.clamp(((cy / cw_s * 0.5 + 0.5) * height).to(torch.int32),
-                           0, height - 1)
-        mesh_depth = depth_map[v_px.long(), u_px.long()]
-        my_depth = (cz / cw_s) * 0.5 + 0.5
-        occluded = (splats.color[:, 3] > 0.95) & (my_depth > mesh_depth + 2e-5)
-        valid = valid & ~occluded
+        if depth_map is not None and int(splat_format) == 0:
+            # mesh-occlusion test of opaque splats against the depth prepass
+            cw_s = torch.where(cw.abs() < 1e-12, 1e-12, cw)
+            u_px = torch.clamp(
+                ((cx / cw_s * 0.5 + 0.5) * width).to(torch.int32),
+                0, width - 1)
+            v_px = torch.clamp(
+                ((cy / cw_s * 0.5 + 0.5) * height).to(torch.int32),
+                0, height - 1)
+            mesh_depth = depth_map[v_px.long(), u_px.long()]
+            my_depth = (cz / cw_s) * 0.5 + 0.5
+            occluded = ((splats.color[:, 3] > 0.95)
+                        & (my_depth > mesh_depth + 2e-5))
+            valid = valid & ~occluded
 
-    # scale decode; model scale per column (|c0|, |c1|, |c2|)
-    multiplier = std_dev if int(splat_format) in (0, 3) else 1.0
-    s = [splats.scale[:, i] * multiplier * ms[i] for i in range(3)]
-    r = rotation_columns(splats.quat, mr)
-    r00, r01, r02, r10, r11, r12, r20, r21, r22 = r
+        # scale decode; model scale per column (|c0|, |c1|, |c2|)
+        multiplier = std_dev if int(splat_format) in (0, 3) else 1.0
+        s = [splats.scale[:, i] * multiplier * ms[i] for i in range(3)]
+        r = rotation_columns(splats.quat, mr)
+        r00, r01, r02, r10, r11, r12, r20, r21, r22 = r
 
-    # EWA Jacobian; z_view is negative in front of the camera
-    z_safe = torch.where(vsz.abs() < 1e-8, -1e-8, vsz)
-    p00, p11 = P[0][0], P[1][1]
-    jsx = -(p00 * width) / (2.0 * z_safe)
-    jsy = -(p11 * height) / (2.0 * z_safe)
-    jtx = (p00 * vsx * width) / (2.0 * z_safe * z_safe)
-    jty = (p11 * vsy * height) / (2.0 * z_safe * z_safe)
+        # EWA Jacobian; z_view is negative in front of the camera
+        z_safe = torch.where(vsz.abs() < 1e-8, -1e-8, vsz)
+        p00, p11 = P[0][0], P[1][1]
+        jsx = -(p00 * width) / (2.0 * z_safe)
+        jsy = -(p11 * height) / (2.0 * z_safe)
+        jtx = (p00 * vsx * width) / (2.0 * z_safe * z_safe)
+        jty = (p11 * vsy * height) / (2.0 * z_safe * z_safe)
 
-    u = [fma(jsx, V[0][k], jtx * V[2][k]) for k in range(3)]
-    v = [fma(jsy, V[1][k], jty * V[2][k]) for k in range(3)]
-    lam2_ok, conic = screen_conic(r, s, u, v)
-    valid = valid & lam2_ok
-    mjx, mjy, mnx, mny = axes_from_conic(conic[:, 0], conic[:, 1], conic[:, 2])
-    axes_px = torch.stack([mjx, mjy, mnx, mny], dim=-1).reshape(-1, 2, 2)
+        u = [fma(jsx, V[0][k], jtx * V[2][k]) for k in range(3)]
+        v = [fma(jsy, V[1][k], jty * V[2][k]) for k in range(3)]
+        lam2_ok, conic = screen_conic(r, s, u, v)
+        valid = valid & lam2_ok
+        mjx, mjy, mnx, mny = axes_from_conic(conic[:, 0], conic[:, 1],
+                                             conic[:, 2])
+        axes_px = torch.stack([mjx, mjy, mnx, mny], dim=-1).reshape(-1, 2, 2)
 
-    w_safe = torch.where(cw.abs() < 1e-12, 1e-12, cw)
-    mean_ndc = torch.stack([cx / w_safe, cy / w_safe], dim=-1)
-    depth = -vsz
-    ws = torch.stack([wsx, wsy, wsz], dim=-1)
+        w_safe = torch.where(cw.abs() < 1e-12, 1e-12, cw)
+        mean_ndc = torch.stack([cx / w_safe, cy / w_safe], dim=-1)
+        depth = -vsz
+        ws = torch.stack([wsx, wsy, wsz], dim=-1)
 
-    if identity_model:
-        n_ws = splats.normal
-    else:
-        normal_mat = np.linalg.inv(M).T[:3, :3].astype(np.float32)
-        n_ws = splats.normal @ torch.from_numpy(normal_mat.T.copy()).to(
-            splats.normal.device)
-    use_mesh_normal = int(splat_format) in (0, 3) or (
-        int(splat_format) == 1 and has_pbr)
-    if use_mesh_normal:
-        normal_enc = encode_normal(n_ws)
-    else:
-        # shortest-covariance-axis normal (a column of R)
-        min_idx = torch.argmin(splats.scale, dim=-1)
-        ax0 = torch.stack([r00, r10, r20], dim=-1)
-        ax1 = torch.stack([r01, r11, r21], dim=-1)
-        ax2 = torch.stack([r02, r12, r22], dim=-1)
-        axis = torch.where((min_idx == 0)[:, None], ax0,
-                           torch.where((min_idx == 1)[:, None], ax1, ax2))
-        normal_enc = encode_normal(axis)
+        if identity_model:
+            n_ws = splats.normal
+        else:
+            normal_mat = np.linalg.inv(M).T[:3, :3].astype(np.float32)
+            n_ws = splats.normal @ torch.from_numpy(normal_mat.T.copy()).to(
+                splats.normal.device)
+        use_mesh_normal = int(splat_format) in (0, 3) or (
+            int(splat_format) == 1 and has_pbr)
+        if use_mesh_normal:
+            normal_enc = encode_normal(n_ws)
+        else:
+            # shortest-covariance-axis normal (a column of R)
+            min_idx = torch.argmin(splats.scale, dim=-1)
+            ax0 = torch.stack([r00, r10, r20], dim=-1)
+            ax1 = torch.stack([r01, r11, r21], dim=-1)
+            ax2 = torch.stack([r02, r12, r22], dim=-1)
+            axis = torch.where((min_idx == 0)[:, None], ax0,
+                               torch.where((min_idx == 1)[:, None], ax1, ax2))
+            normal_enc = encode_normal(axis)
 
-    expdepth = exponential_depth(depth, camera.near, camera.far)
-    alpha = splats.color[:, 3:4]
-    mode = int(render_mode)
-    if mode == 1:
-        color = torch.cat([expdepth[:, None].expand(-1, 3), alpha], dim=-1)
-    elif mode == 2:
-        color = torch.cat([normal_enc, alpha], dim=-1)
-    elif mode == 3:
-        gid = torch.arange(splats.capacity, dtype=torch.float32,
-                           device=splats.pos.device)
-        co = torch.stack([torch.remainder(gid, 4096.0),
-                          torch.div(gid, 4096.0, rounding_mode="floor")],
-                         dim=-1)
-        color = torch.stack([
-            _hash_random2d(co), _hash_random2d(co.flip(-1)),
-            _hash_random2d(co.flip(-1) * 1.234), torch.ones_like(gid),
-        ], dim=-1)
-    else:  # ALBEDO, FINAL, and the downstream OVERDRAW / PBR modes
-        color = splats.color
+        expdepth = exponential_depth(depth, camera.near, camera.far)
+        alpha = splats.color[:, 3:4]
+        mode = int(render_mode)
+        if mode == 1:
+            color = torch.cat([expdepth[:, None].expand(-1, 3), alpha], dim=-1)
+        elif mode == 2:
+            color = torch.cat([normal_enc, alpha], dim=-1)
+        elif mode == 3:
+            gid = torch.arange(splats.capacity, dtype=torch.float32,
+                               device=splats.pos.device)
+            co = torch.stack([torch.remainder(gid, 4096.0),
+                              torch.div(gid, 4096.0, rounding_mode="floor")],
+                             dim=-1)
+            color = torch.stack([
+                _hash_random2d(co), _hash_random2d(co.flip(-1)),
+                _hash_random2d(co.flip(-1) * 1.234), torch.ones_like(gid),
+            ], dim=-1)
+        else:  # ALBEDO, FINAL, and the downstream OVERDRAW / PBR modes
+            color = splats.color
 
-    return ProjectedSplats(
-        mean_ndc=mean_ndc, axes_px=axes_px, conic=conic, depth=depth,
-        color=color, normal=normal_enc, wspos=ws, pbr=splats.pbr, valid=valid,
-    )
+        return ProjectedSplats(
+            mean_ndc=mean_ndc, axes_px=axes_px, conic=conic, depth=depth,
+            color=color, normal=normal_enc, wspos=ws, pbr=splats.pbr,
+            valid=valid,
+        )

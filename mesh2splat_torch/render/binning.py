@@ -27,6 +27,7 @@ import torch
 
 from ..ops import segments
 from ..ops.projection import ProjectedSplats
+from ..utils.profiling import annotate
 
 TILE_H = 32
 TILE_W = 32
@@ -171,68 +172,70 @@ def bin_pairs(proj: ProjectedSplats, width: int, height: int,
     """Depth-ordered per-tile pair field lists from projected splats.
     band_ty: optional per-splat tile-row clamp (see _tile_geom), used by
     the fused shadow cubemap."""
-    n = proj.capacity
-    dev = proj.depth.device
-    ty, tx = tiles_for(width, height)
-    num_tiles = ty * tx
-    # the JAX package packs (tx0, ty0, sx) into 7 + 11 + 7 bits; keep its
-    # image-size limit so both accept the same inputs
-    if tx > 127 or ty > 2047:
-        raise ValueError(
-            f"image {width}x{height} exceeds the binner's packed-geometry "
-            f"budget ({127 * TILE_W}x{2047 * TILE_H} max)"
-        )
-    if not c_capacity:
-        c_capacity = default_c_capacity(n)
+    with annotate("m2s.render.bin"):
+        n = proj.capacity
+        dev = proj.depth.device
+        ty, tx = tiles_for(width, height)
+        num_tiles = ty * tx
+        # the JAX package packs (tx0, ty0, sx) into 7 + 11 + 7 bits; keep its
+        # image-size limit so both accept the same inputs
+        if tx > 127 or ty > 2047:
+            raise ValueError(
+                f"image {width}x{height} exceeds the binner's packed-geometry "
+                f"budget ({127 * TILE_W}x{2047 * TILE_H} max)"
+            )
+        if not c_capacity:
+            c_capacity = default_c_capacity(n)
 
-    mean_xy, tx0, ty0, sx, sy, valid = _tile_geom(proj, width, height,
-                                                  band_ty)
-    pairs_n = sx * sy
-    vals = _record_columns(proj, mean_xy, variant)  # (F, N)
-    nf = vals.shape[0]
+        mean_xy, tx0, ty0, sx, sy, valid = _tile_geom(proj, width, height,
+                                                      band_ty)
+        pairs_n = sx * sy
+        vals = _record_columns(proj, mean_xy, variant)  # (F, N)
+        nf = vals.shape[0]
 
-    with torch.no_grad():
-        # class A: first tile of every valid splat
-        tile_a = torch.where(valid, ty0 * tx + tx0, num_tiles)
+        with torch.no_grad():
+            # class A: first tile of every valid splat
+            tile_a = torch.where(valid, ty0 * tx + tx0, num_tiles)
 
-        # class C: tiles 2..span through the budgeted expansion
-        counts_c = torch.where(valid & (pairs_n > 1), pairs_n - 1, 0)
-        off_c, tot_c = segments.alloc_slots(counts_c, c_capacity)
-        owner = segments.fill_value(
-            off_c, counts_c, c_capacity,
-            torch.arange(n, dtype=torch.int32, device=dev),
-        )
-        owner = torch.clamp(owner, min=0).long()
-        slot = torch.arange(c_capacity, dtype=torch.int32, device=dev)
-        live_c = slot < tot_c
-        # +1: the span's first (row-major) tile rides in class A
-        local_c = slot - off_c[owner] + 1
-        sx_c = torch.clamp(sx[owner], min=1)
-        dy_c = torch.div(local_c, sx_c, rounding_mode="floor")
-        dx_c = local_c - dy_c * sx_c
-        tile_c = (ty0[owner] + dy_c) * tx + tx0[owner] + dx_c
-        tile_c = torch.where(live_c, tile_c, num_tiles)
+            # class C: tiles 2..span through the budgeted expansion
+            counts_c = torch.where(valid & (pairs_n > 1), pairs_n - 1, 0)
+            off_c, tot_c = segments.alloc_slots(counts_c, c_capacity)
+            owner = segments.fill_value(
+                off_c, counts_c, c_capacity,
+                torch.arange(n, dtype=torch.int32, device=dev),
+            )
+            owner = torch.clamp(owner, min=0).long()
+            slot = torch.arange(c_capacity, dtype=torch.int32, device=dev)
+            live_c = slot < tot_c
+            # +1: the span's first (row-major) tile rides in class A
+            local_c = slot - off_c[owner] + 1
+            sx_c = torch.clamp(sx[owner], min=1)
+            dy_c = torch.div(local_c, sx_c, rounding_mode="floor")
+            dx_c = local_c - dy_c * sx_c
+            tile_c = (ty0[owner] + dy_c) * tx + tx0[owner] + dx_c
+            tile_c = torch.where(live_c, tile_c, num_tiles)
 
-        tile_rows = torch.cat([tile_a, tile_c])
-        depth = proj.depth.detach()
-        depth_rows = torch.cat([depth, depth[owner]])
-        key = (tile_rows.to(torch.int64) << 32) | depth_sort_bits(depth_rows)
-        sorted_key, perm = torch.sort(key, stable=True)
-        tile_starts = segments.segment_starts(sorted_key >> 32, num_tiles)
-        dropped = torch.clamp(counts_c.sum() - c_capacity, min=0)
+            tile_rows = torch.cat([tile_a, tile_c])
+            depth = proj.depth.detach()
+            depth_rows = torch.cat([depth, depth[owner]])
+            key = ((tile_rows.to(torch.int64) << 32)
+                   | depth_sort_bits(depth_rows))
+            sorted_key, perm = torch.sort(key, stable=True)
+            tile_starts = segments.segment_starts(sorted_key >> 32, num_tiles)
+            dropped = torch.clamp(counts_c.sum() - c_capacity, min=0)
 
-    # index_select, not vals[:, owner]: its backward is one index_add_ onto
-    # the owners, where indexing's is a sorted index_put over a strided dim
-    # (two thirds of a 1080p training step on an H100, profile_port.py)
-    val_rows = torch.cat([vals, vals.index_select(1, owner)], dim=1)
-    rows = val_rows.shape[1]
-    f_pad = padded_rows(variant)
-    rows_pad = -(-rows // CHUNK) * CHUNK
-    fields = torch.nn.functional.pad(_SortCarry.apply(val_rows, perm),
-                                     (0, rows_pad - rows, 0, f_pad - nf))
-    return BinnedPairs(fields=fields, tile_starts=tile_starts,
-                       num_pairs=tile_starts[num_tiles],
-                       dropped_pairs=dropped)
+        # index_select, not vals[:, owner]: its backward is one index_add_ onto
+        # the owners, where indexing's is a sorted index_put over a strided dim
+        # (two thirds of a 1080p training step on an H100, profile_port.py)
+        val_rows = torch.cat([vals, vals.index_select(1, owner)], dim=1)
+        rows = val_rows.shape[1]
+        f_pad = padded_rows(variant)
+        rows_pad = -(-rows // CHUNK) * CHUNK
+        fields = torch.nn.functional.pad(_SortCarry.apply(val_rows, perm),
+                                         (0, rows_pad - rows, 0, f_pad - nf))
+        return BinnedPairs(fields=fields, tile_starts=tile_starts,
+                           num_pairs=tile_starts[num_tiles],
+                           dropped_pairs=dropped)
 
 
 @torch.no_grad()

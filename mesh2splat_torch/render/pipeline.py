@@ -14,6 +14,7 @@ import torch
 
 from ..ops.projection import project_splats
 from ..types import Camera, Material, RenderMode, SplatFormat, Splats, TriangleMesh
+from ..utils.profiling import annotate
 from .binning import required_overflow, round_pow2_budget
 from .lighting import PointLight, deferred_resolve
 from .mesh_raster import rasterize_mesh
@@ -94,21 +95,23 @@ def _frame_core(splats, camera, light, mesh, material, cubemap,
 
     gbuffer = render_gbuffer(splats, camera, config, depth_map=depth_map,
                              model_to_world=model_to_world)
-    shadow = None
-    if cubemap is not None:
-        shadow = pcf_shadow_factor(cubemap, gbuffer["position"][..., :3])
-    return deferred_resolve(gbuffer, camera_position(camera), light,
-                            render_mode=config.render_mode,
-                            shadow_factor=shadow)
+    with annotate("m2s.render.resolve"):
+        shadow = None
+        if cubemap is not None:
+            shadow = pcf_shadow_factor(cubemap, gbuffer["position"][..., :3])
+        return deferred_resolve(gbuffer, camera_position(camera), light,
+                                render_mode=config.render_mode,
+                                shadow_factor=shadow)
 
 
 def calibrate_frame(splats: Splats, camera: Camera, config: FrameConfig,
                     model_to_world=None) -> FrameConfig:
     """Size the class-C pair budget to this scene and view (pow2-rounded);
     same image as any larger budget."""
-    proj = _project(splats, camera, config, model_to_world)
-    p = int(required_overflow(proj, config.width, config.height))
-    return dataclasses.replace(config, pair_capacity=round_pow2_budget(p))
+    with annotate("m2s.render.calibrate"):
+        proj = _project(splats, camera, config, model_to_world)
+        p = int(required_overflow(proj, config.width, config.height))
+        return dataclasses.replace(config, pair_capacity=round_pow2_budget(p))
 
 
 def render_frame(splats: Splats, camera: Camera, config: FrameConfig,

@@ -34,6 +34,7 @@ from ..types import (
     Camera, SplatFormat, Splats, look_at, perspective, resolve_device,
     to_device,
 )
+from ..utils.profiling import annotate
 from . import binning as B
 from . import composite as C
 
@@ -277,33 +278,35 @@ def render_shadow_cubemap(
     pixel), O(N size^2)) or "auto" (tiled for size >= 512 or more than
     65,536 splats). pair_capacity: the class-C budget, 0 to size it to
     this scene."""
-    dev = resolve_device(device)
-    splats = to_device(splats, dev)
-    light_pos = torch.as_tensor(light_pos, dtype=torch.float32, device=dev)
-    far = torch.as_tensor(far, dtype=torch.float32, device=dev)
-    if model_to_world is not None:
-        model_to_world = model_to_world.to(dev)
+    with annotate("m2s.render.shadow"):
+        dev = resolve_device(device)
+        splats = to_device(splats, dev)
+        light_pos = torch.as_tensor(light_pos, dtype=torch.float32, device=dev)
+        far = torch.as_tensor(far, dtype=torch.float32, device=dev)
+        if model_to_world is not None:
+            model_to_world = model_to_world.to(dev)
 
-    if method == "auto":
-        method = "tiled" if size >= 512 or splats.capacity > 65536 else "dense"
-    if method == "tiled":
-        if size % B.TILE_H:
-            # the band scissor takes each face as whole tile rows
-            raise ValueError(
-                f"tiled shadow size must be a multiple of {B.TILE_H}")
-        merged, band, need = _shadow_prep_fused(
-            splats, light_pos, far, std_dev, size, model_to_world,
-            splat_format)
-        cap = pair_capacity or B.round_pow2_budget(need)
-        faces = _fused_min_raster(merged, band, size, cap)
-    elif method == "dense":
-        radial, projs = _shadow_prep(splats, light_pos, far, std_dev, size,
-                                     model_to_world, splat_format)
-        faces = torch.stack([_min_rasterize_face(p, radial, size, chunk)
-                             for p in projs])
-    else:
-        raise ValueError(f"method {method!r}: 'auto', 'tiled' or 'dense'")
-    return ShadowCubemap(faces=faces, light_pos=light_pos, far=far)
+        if method == "auto":
+            method = ("tiled" if size >= 512 or splats.capacity > 65536
+                      else "dense")
+        if method == "tiled":
+            if size % B.TILE_H:
+                # the band scissor takes each face as whole tile rows
+                raise ValueError(
+                    f"tiled shadow size must be a multiple of {B.TILE_H}")
+            merged, band, need = _shadow_prep_fused(
+                splats, light_pos, far, std_dev, size, model_to_world,
+                splat_format)
+            cap = pair_capacity or B.round_pow2_budget(need)
+            faces = _fused_min_raster(merged, band, size, cap)
+        elif method == "dense":
+            radial, projs = _shadow_prep(splats, light_pos, far, std_dev, size,
+                                         model_to_world, splat_format)
+            faces = torch.stack([_min_rasterize_face(p, radial, size, chunk)
+                                 for p in projs])
+        else:
+            raise ValueError(f"method {method!r}: 'auto', 'tiled' or 'dense'")
+        return ShadowCubemap(faces=faces, light_pos=light_pos, far=far)
 
 
 def sample_cubemap(faces, directions, filter_linear: bool = False):

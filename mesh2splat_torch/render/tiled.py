@@ -9,6 +9,7 @@ import torch
 
 from ..ops.projection import ProjectedSplats
 from ..types import RenderMode
+from ..utils.profiling import annotate
 from . import binning as B
 from . import composite as C
 from .rasterize import OVERDRAW_RGBA
@@ -41,8 +42,9 @@ def rasterize_tiled(proj: ProjectedSplats, width: int, height: int,
         }
     binned = B.bin_pairs(proj, width, height, pair_capacity,
                          variant="albedo" if albedo_only else "full")
-    out = C.composite_tiles(binned.fields, binned.tile_starts, height, ty, tx,
-                            albedo_only)
+    with annotate("m2s.render.composite"):
+        out = C.composite_tiles(binned.fields, binned.tile_starts, height, ty,
+                                tx, albedo_only)
     out = out[:, :height, :width]
 
     def chans(*idx):

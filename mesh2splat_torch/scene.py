@@ -30,6 +30,7 @@ from .types import (
     RenderMode, SplatFormat, Splats, TriangleMesh, compose_trs, make_camera,
     resolve_device,
 )
+from .utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -73,15 +74,17 @@ class Scene:
         cfg = ConversionConfig(resolution=resolution, layers=layers,
                                gaussian_std=gaussian_std)
         self.last_config = cfg
-        if len(self.primitives) > 1:
-            return convert_packed(
-                [(mesh, mat) for mesh, mat, _ in self.primitives], cfg,
-                calibrate_budget=calibrated, return_stats=return_stats,
-            )
-        mesh, mat, pr = self.primitives[0]
-        lo, hi = (mesh.tri_pos.new_tensor(b) for b in pr.bbox())
-        pcfg = calibrate(mesh, lo, hi, cfg) if calibrated else cfg
-        return convert(mesh, mat, lo, hi, pcfg, return_stats=return_stats)
+        with annotate("m2s.convert"):
+            if len(self.primitives) > 1:
+                return convert_packed(
+                    [(mesh, mat) for mesh, mat, _ in self.primitives], cfg,
+                    calibrate_budget=calibrated, return_stats=return_stats,
+                )
+            mesh, mat, pr = self.primitives[0]
+            with annotate("m2s.convert.bbox"):
+                lo, hi = (mesh.tri_pos.new_tensor(b) for b in pr.bbox())
+            pcfg = calibrate(mesh, lo, hi, cfg) if calibrated else cfg
+            return convert(mesh, mat, lo, hi, pcfg, return_stats=return_stats)
 
     def render(self, splats: Splats, eye, center=(0, 0, 0), up=(0, 1, 0),
                width=1280, height=720, fov_deg=60.0,
@@ -91,24 +94,28 @@ class Scene:
         (4, 4) matrix or a (translation, rotation_wxyz, scale) tuple.
         gaussian_std overrides the conversion's sigma (imported 3DGS PLYs
         store real-unit scales, so it does not apply to them)."""
-        dev = splats.device
-        if model_transform is not None and isinstance(model_transform, tuple):
-            model_transform = compose_trs(*model_transform, device=dev)
-        cam = make_camera(eye=list(eye), center=list(center), up=list(up),
-                          fov_y_rad=np.deg2rad(fov_deg), width=width,
-                          height=height, device=dev)
-        res_target = self.last_config.resolution if self.last_config else 1
-        std = gaussian_std if gaussian_std is not None else (
-            self.last_config.gaussian_std if self.last_config else 1.0)
-        fc = FrameConfig(
-            width=width, height=height, render_mode=mode,
-            splat_format=self.splat_format, gaussian_std=std,
-            resolution_target=res_target, shadows=shadows,
-            has_pbr=self.has_pbr,
-        )
-        fc = calibrate_frame(splats, cam, fc, model_to_world=model_transform)
-        return render_frame(splats, cam, fc, light=light,
-                            model_to_world=model_transform)
+        with annotate("m2s.render"):
+            dev = splats.device
+            if (model_transform is not None
+                    and isinstance(model_transform, tuple)):
+                model_transform = compose_trs(*model_transform, device=dev)
+            cam = make_camera(eye=list(eye), center=list(center),
+                              up=list(up), fov_y_rad=np.deg2rad(fov_deg),
+                              width=width, height=height, device=dev)
+            res_target = (self.last_config.resolution if self.last_config
+                          else 1)
+            std = gaussian_std if gaussian_std is not None else (
+                self.last_config.gaussian_std if self.last_config else 1.0)
+            fc = FrameConfig(
+                width=width, height=height, render_mode=mode,
+                splat_format=self.splat_format, gaussian_std=std,
+                resolution_target=res_target, shadows=shadows,
+                has_pbr=self.has_pbr,
+            )
+            fc = calibrate_frame(splats, cam, fc,
+                                 model_to_world=model_transform)
+            return render_frame(splats, cam, fc, light=light,
+                                model_to_world=model_transform)
 
     def render_split(self, splats: Splats, eye, center=(0, 0, 0),
                      up=(0, 1, 0), width=1280, height=720, fov_deg=60.0,

@@ -10,8 +10,18 @@ records a ``torch.cuda.Event`` on the current stream at submission and later
 waits on that event; a result on the CPU is complete when it is returned.
 
 ``trace()`` wraps torch.profiler and writes a Chrome trace (chrome://tracing,
-Perfetto); ``annotate()`` names a region in it (the glPushDebugGroup
-analogue, reference: RenderContext.hpp:12-25 PassesDebugIDs).
+Perfetto). ``annotate()`` is the program's span (the glPushDebugGroup
+analogue, reference: RenderContext.hpp:12-25 PassesDebugIDs): ``Scene``'s
+entries and each layer under them open one (``m2s.convert.*``,
+``m2s.render.*``). A span is recorded only while a torch.profiler records
+CPU activity ("tracing on" is running under the profiler; there is no other
+switch), as one host event in the profiler's own buffers, written out with
+the device's events on the same clock; otherwise it costs about a
+microsecond. It is a FUNCTION-scope record, not a user annotation
+(``torch.profiler.record_function``): the profiler copies user annotations
+onto the device's timeline as ``gpu_user_annotation`` events, which would
+count as device time in a reading of the device's intervals, and
+``record_function`` costs about ten times as much.
 """
 
 from __future__ import annotations
@@ -82,11 +92,10 @@ def trace(log_dir=DEFAULT_TRACE_DIR):
     prof.export_chrome_trace(str(out / "trace.json"))
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """Named region in profiler traces."""
-    with torch.profiler.record_function(name):
-        yield
+    """A span named ``name`` over a ``with`` block: a host event of the
+    profiler's trace while one records CPU activity, else nothing."""
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def format_with_commas(value: int) -> str:
