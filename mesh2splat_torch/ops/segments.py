@@ -1,7 +1,9 @@
 """Segment/slot allocation primitives (counterpart of
 ``mesh2splat_tpu.ops.segments``): a producer claiming ``count`` contiguous
 slots is an exclusive cumsum; mapping each slot back to its producer is a
-scatter-max of producer values at segment starts followed by a running max.
+scatter-max of producer values at segment starts followed by a running max,
+or, where only the producer's id is wanted, a binary search over the
+segment ends (``owner_of_slots``).
 
 Values stay int32; indices are cast to int64 only to index.
 """
@@ -68,6 +70,24 @@ def fill_value(offsets, counts, capacity, value):
     idx = _start_index(offsets, counts, capacity)
     marks = _scatter_max(idx, value + 1, capacity, 0)
     return torch.cummax(marks, 0).values - 1
+
+
+def owner_of_slots(offsets, counts, capacity):
+    """(capacity,) int64 producer of each slot, equal on every slot to
+    ``clamp(fill_value(offsets, counts, capacity, arange(T)), min=0)``.
+
+    The segment ends ``offsets + counts`` of a cumsum allocation never
+    decrease, so a live slot's producer is the first whose end lies past
+    it; a dead slot takes the last live slot's producer, as the running max
+    carries it, and every slot takes 0 when no slot is live. A search of
+    sorted queries, with no scatter: the scatter-max sends every producer
+    with a count of 0 to one overflow address."""
+    ends = offsets + counts
+    total = torch.clamp(ends[-1], max=capacity)
+    slot = torch.arange(capacity, dtype=torch.int32, device=offsets.device)
+    # q < ends[-1]: the search never runs past the last producer
+    q = torch.minimum(slot, total - 1)
+    return torch.searchsorted(ends, q, right=True)
 
 
 def expand_monotone(offsets, counts, capacity, value=None):

@@ -4,7 +4,8 @@
   * class A: the first tile of every valid splat's span rectangle, one row
     per splat;
   * class C: tiles 2..span of multi-tile splats, through the budgeted
-    expansion (cumsum slot allocation + one owner fill + gathers);
+    expansion (cumsum slot allocation, each slot's owner by a binary
+    search over the segment ends, gathers);
   * one stable ``torch.sort`` on a single int64 key (tile, depth) orders
     all rows exactly as the JAX package's three-key ``lax.sort`` on
     (tile, f32 depth, row id): the depth bits are mapped to an unsigned
@@ -13,7 +14,7 @@
   * per-tile ranges from one searchsorted.
 
 Differentiable with respect to the pair fields (the JAX package's
-sort-carry VJP): keys, ``tile_starts`` and the class-C owner fill carry no
+sort-carry VJP): keys, ``tile_starts`` and the class-C owner search carry no
 gradient; the class-C gather sums its cotangent back onto each splat
 (``index_select``, whose backward is ``index_add_``), and the sorted gather
 un-permutes its cotangent with one indexed store (every row id is unique).
@@ -200,11 +201,7 @@ def bin_pairs(proj: ProjectedSplats, width: int, height: int,
             # class C: tiles 2..span through the budgeted expansion
             counts_c = torch.where(valid & (pairs_n > 1), pairs_n - 1, 0)
             off_c, tot_c = segments.alloc_slots(counts_c, c_capacity)
-            owner = segments.fill_value(
-                off_c, counts_c, c_capacity,
-                torch.arange(n, dtype=torch.int32, device=dev),
-            )
-            owner = torch.clamp(owner, min=0).long()
+            owner = segments.owner_of_slots(off_c, counts_c, c_capacity)
             slot = torch.arange(c_capacity, dtype=torch.int32, device=dev)
             live_c = slot < tot_c
             # +1: the span's first (row-major) tile rides in class A

@@ -138,6 +138,57 @@ def test_segments_exact(capacity):
         np.asarray(JS.segment_starts(jnp.asarray(keys), 10)))
 
 
+def _owner_counts(case):
+    """(counts, capacity) of one owner_of_slots case."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    counts = rng.integers(1, 7, 90).astype(np.int32)
+    if case.startswith("zeros"):
+        share = float(case.split("_")[1])
+        counts[rng.uniform(size=90) < share] = 0
+        return counts, 400
+    if case == "zero_runs":      # leading and trailing runs of zero counts
+        counts[rng.uniform(size=90) < 0.5] = 0
+        counts[:17] = 0
+        counts[-23:] = 0
+        return counts, 300
+    if case == "over_budget":    # sum(counts) > capacity
+        counts[rng.uniform(size=90) < 0.3] = 0
+        return counts, 120
+    if case == "capacity_1":
+        counts[:5] = 0
+        return counts, 1
+    if case == "n_1":
+        return counts[:1], 8
+    return np.zeros((1,), np.int32), 8   # "n_1_zero"
+
+
+@pytest.mark.parametrize("case", [
+    "zeros_0", "zeros_0.5", "zeros_0.95", "zeros_1", "zero_runs",
+    "over_budget", "capacity_1", "n_1", "n_1_zero"])
+def test_owner_of_slots_matches_fill(case):
+    """Each slot's producer by the search over segment ends equals the
+    clamped forward fill of producer ids, the port's and the JAX package's,
+    on every slot, live and dead."""
+    counts, capacity = _owner_counts(case)
+    n = counts.shape[0]
+    tc = torch.from_numpy(counts)
+    t_off, t_tot = TS.alloc_slots(tc, capacity)
+    j_off, _ = JS.alloc_slots(jnp.asarray(counts), capacity)
+    owner = TS.owner_of_slots(t_off, tc, capacity)
+    assert owner.dtype == torch.int64 and owner.shape == (capacity,)
+    port = torch.clamp(TS.fill_value(
+        t_off, tc, capacity, torch.arange(n, dtype=torch.int32)), min=0)
+    jax_ = np.maximum(np.asarray(JS.fill_value(
+        j_off, jnp.asarray(counts), capacity,
+        jnp.arange(n, dtype=jnp.int32))), 0)
+    np.testing.assert_array_equal(owner.numpy(), port.numpy())
+    np.testing.assert_array_equal(owner.numpy(), jax_)
+    if case == "over_budget":
+        assert int(counts.sum()) > capacity == int(t_tot)
+    if case in ("zeros_1", "n_1_zero"):
+        assert int(t_tot) == 0 and not owner.any()
+
+
 def test_triplanar_match():
     mesh, _ = sphere_mesh(300, seed=2)
     tp = mesh["tri_pos"]

@@ -677,6 +677,25 @@ def test_convert_odd_resolution_cuda_matches_cpu(cuda, res):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("capacity", [1 << 18, 1 << 16])
+def test_owner_of_slots_cuda_matches_cpu(cuda, capacity):
+    """The class-C owner search at ~1M producers, 95 % of them with a
+    count of 0 (an ALBEDO frame's single-tile splats), on the card against
+    the CPU and against the forward fill, on every slot; at 1 << 16 the
+    counts overrun the capacity."""
+    g = torch.Generator().manual_seed(capacity)
+    counts = torch.randint(1, 6, (1 << 20,), generator=g, dtype=torch.int32)
+    counts[torch.rand(1 << 20, generator=g) < 0.95] = 0
+    off, tot = TS.alloc_slots(counts, capacity)
+    ref = TS.owner_of_slots(off, counts, capacity)
+    assert torch.equal(ref, torch.clamp(TS.fill_value(
+        off, counts, capacity,
+        torch.arange(1 << 20, dtype=torch.int32)), min=0))
+    assert (int(counts.sum()) > capacity) == (capacity == 1 << 16)
+    got = TS.owner_of_slots(off.to(cuda), counts.to(cuda), capacity)
+    assert torch.equal(got.cpu(), ref)
+
+
 def _cubemap_pairs(device):
     """The band-clamped "depth" pairs of a 128^2 tiled shadow cubemap."""
     from mesh2splat_torch.render import shadows as TS

@@ -91,21 +91,45 @@ def _projected_with_ties(n=400, seed=3):
     return p
 
 
+def _projected_sparse(n=400, seed=5, big=10):
+    """A JAX projection in which almost every splat is single-tile (tiny,
+    moved to a tile's middle) or invalid, so that almost every class-C
+    count is 0; ``big`` splats at random indices are widened to span
+    several tiles."""
+    p = host(j_proj(random_splats(n, seed=seed, scale=(2e-4, 1e-3))))
+    rng = np.random.default_rng(seed)
+    tx, ty = rng.integers(0, W // 32, n), rng.integers(0, H // 32, n)
+    px = 32 * tx + 16 + rng.uniform(-8, 8, n)
+    py = 32 * ty + 16 + rng.uniform(-8, 8, n)
+    ndc = np.stack([px / (W / 2) - 1, py / (H / 2) - 1], -1)
+    wide = rng.choice(n, big, replace=False)
+    ndc[wide] = rng.uniform(-0.9, 0.9, (big, 2))
+    p["mean_ndc"] = ndc.astype(np.float32)
+    p["axes_px"] = p["axes_px"].copy()
+    p["axes_px"][wide] *= 12.0
+    p["valid"] = p["valid"] & (rng.uniform(size=n) >= 0.3)
+    return p
+
+
 @pytest.mark.parametrize("variant,c_capacity", [
     ("full", 0), ("albedo", 0), ("full", 64), ("depth", 0),
-    ("depth-band", 0), ("overdraw", 0)])
+    ("depth-band", 0), ("overdraw", 0), ("albedo-sparse", 0),
+    ("full-sparse", 0), ("depth-band-sparse", 0), ("albedo-sparse", 16)])
 def test_binning_exact(variant, c_capacity):
     """Same numpy ProjectedSplats in, identical tile ranges, counts, drops
     and pair fields out (the stable torch.sort orders as lax.sort does).
     The "depth" and "overdraw" variants are binned as the JAX package bins
-    them for shadows and overdraw (without its row-id key); "depth-band"
-    adds a per-splat tile-row band (the cubemap's face scissor): one tile
-    row for some splats, both for others."""
-    p = _projected_with_ties()
+    them for shadows and overdraw (without its row-id key); "band" adds a
+    per-splat tile-row band (the cubemap's face scissor): one tile row for
+    some splats, both for others. "sparse" bins a projection whose class-C
+    counts are almost all 0, with zero runs at both ends, so that the
+    owners of dead class-C rows (padding included) are held too."""
+    variant, *opts = variant.split("-")
+    banded, sparse = "band" in opts, "sparse" in opts
+    p = _projected_sparse() if sparse else _projected_with_ties()
     from mesh2splat_tpu.ops.projection import ProjectedSplats as JP
 
     jp = JP(**{k: jnp.asarray(v) for k, v in p.items()})
-    variant, banded = variant.split("-")[0], variant.endswith("band")
     kw_j, kw_t = {}, {}
     if banded:
         lo = np.random.default_rng(0).integers(0, 2, p["depth"].shape[0],
@@ -122,7 +146,11 @@ def test_binning_exact(variant, c_capacity):
                                   np.asarray(ref.tile_starts))
     assert int(out.num_pairs) == int(ref.num_pairs) > 0
     assert int(out.dropped_pairs) == int(ref.dropped_pairs)
-    assert (c_capacity == 64) == (int(out.dropped_pairs) > 0)
+    assert (c_capacity > 0) == (int(out.dropped_pairs) > 0)
+    if sparse:
+        need = TB.required_overflow(state.projected(p, "cpu"), W, H,
+                                    kw_t.get("band_ty"))
+        assert 0 < int(need) < p["depth"].shape[0] // 10
     np.testing.assert_array_equal(out.fields.numpy(), np.asarray(ref.fields))
     assert int(TB.required_overflow(state.projected(p, "cpu"), W, H,
                                     kw_t.get("band_ty"))) == \
