@@ -5,6 +5,8 @@ stores the reference's splats in bfloat16."""
 from __future__ import annotations
 
 import dataclasses
+import math
+import statistics
 
 import torch
 
@@ -42,3 +44,38 @@ def bf16_splats(splats):
     return dataclasses.replace(splats, **{
         f: getattr(splats, f).to(torch.bfloat16).float()
         for f in SPLAT_FIELDS})
+
+
+def _gap(a: float, b: float, floor: float) -> float:
+    """|a - b| over the larger of b and ``floor``."""
+    d = max(b, floor)
+    if d > 0.0:
+        return abs(a - b) / d
+    return 0.0 if a == b else math.inf
+
+
+def fit_readings(prog: dict, ref: dict) -> dict:
+    """A trainer's first steps against the reference's, from the readings
+    of ``reference.train.first_steps``:
+    loss_rel_err: the largest gap of a step's loss over the reference's;
+    grad_norm_gap: over the leaves, the largest gap between the norms of
+    the first gradient, over the larger of the reference's norm of that
+    leaf and of the median leaf;
+    change_norm_gap: the same of each leaf's change over the steps, over
+    the leaves whose reference gradient is at least a thousandth of the
+    median leaf's (a leaf with a gradient of nought to rounding moves under
+    Adam by round-off alone)."""
+    if len(prog["losses"]) != len(ref["losses"]):
+        loss = math.inf
+    else:
+        loss = max(_gap(a, b, 0.0)
+                   for a, b in zip(prog["losses"], ref["losses"]))
+    g_med = statistics.median(ref["grad_norms"])
+    grad = max(_gap(a, b, g_med)
+               for a, b in zip(prog["grad_norms"], ref["grad_norms"]))
+    keep = [i for i, g in enumerate(ref["grad_norms"]) if g >= 1e-3 * g_med]
+    c_med = statistics.median(ref["change_norms"][i] for i in keep)
+    change = max(_gap(prog["change_norms"][i], ref["change_norms"][i], c_med)
+                 for i in keep)
+    return {"loss_rel_err": loss, "grad_norm_gap": grad,
+            "change_norm_gap": change}

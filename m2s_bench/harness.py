@@ -125,6 +125,7 @@ class Run:
         self.latencies_s: list = []
         self.unit_keys: list = []      # the reference's key of each unit
         self.bounds: dict = {}         # kernel -> {key: bound s}
+        self.readings: dict = {}       # what set-up read of the program
         self.trace: Trace | None = None
         self.memory_peak_bytes = 0
         self._ref_key = None
@@ -153,13 +154,15 @@ class Run:
 
 
 @contextlib.contextmanager
-def counting_kernels(run: Run):
-    """While the reference runs, each roofline module's target (a plain
-    version in the reference) is wrapped so that each call adds its bound
-    to the run."""
+def counting_kernels(run: Run, kernels: set):
+    """While the reference runs, the target (a plain version in the
+    reference) of each roofline module of ``kernels`` is wrapped so that
+    each call adds its bound to the run."""
     undo = []
     try:
         for mod in roofline_modules():
+            if mod.KERNEL not in kernels:
+                continue
             ref = importlib.import_module(f"m2s_bench.reference.{mod.TARGET[0]}")
             orig = getattr(ref, mod.TARGET[1])
 
@@ -263,18 +266,26 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     t_ref = time.perf_counter()
-    with counting_kernels(run) if trace else contextlib.nullcontext():
+    # the kernels whose share of the roofline (<kernel>_roofline.*) the
+    # cell reports
+    shares = {m["name"].split("_roofline")[0]
+              for m in spec.metrics(workload, True)
+              if "_roofline" in m["name"]}
+    with (counting_kernels(run, shares) if trace
+          else contextlib.nullcontext()):
         checks, n_bad = entry.check(run, sampler.items)
     log(f"reference check in {time.perf_counter() - t_ref:.1f} s")
     del sampler
     correct = all(math.isfinite(c["value"]) and c["value"] <= c["limit"]
                   for c in checks.values())
 
+    t_read = time.perf_counter()
     metrics = {}
     for m in spec.metrics(workload, trace):
         value = metric_reader(m["name"]).read(run)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    log(f"metrics read in {time.perf_counter() - t_read:.1f} s")
     result = {"correct": correct, "attempted": run.completed,
               "failed": n_bad, "metrics": metrics,
               "device": device_info(run, trace)}

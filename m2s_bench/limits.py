@@ -13,11 +13,16 @@ seeds the control (the reference with its splats stored in bfloat16) is
 read against the reference on the same units. One JSON line a seed, then
 the largest program reading and the smallest control reading of each
 number. The benchmark's own runs never run the control.
+
+``--faults a,b --fault-seeds 3`` also reads, on the first seeds, the
+program with each of the entry's planted faults (``entry.planted``; a
+trainer's), against the same seed's reference readings.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import sys
@@ -25,22 +30,29 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+KEEP = ("reference_readings",)   # what runs of one seed share
 
-def program_reading(harness, spec, workload, seed, device):
+
+def program_reading(harness, spec, workload, seed, device, fault=None,
+                    inputs=None):
     cell = spec.cell(workload)
     config, mix = spec.config(cell["config"]), spec.mix(cell["traffic"])
     run = harness.Run(cell, config, mix, seed, 0.0, device)
+    run.inputs.update(inputs or {})
     entry = harness.entry_module(mix["entry"])
-    state = entry.setup(run)
-    units = entry.limit_units(run)
-    run.unit_keys = [entry.unit_key(state, i) for i in range(max(units) + 1)]
-    samples = []
-    for i in units:
-        samples.append((i, entry.unit(state, i)))
-        run.sync()
-    entry.release(state)
+    with entry.planted(fault) if fault else contextlib.nullcontext():
+        state = entry.setup(run)
+        units = entry.limit_units(run)
+        run.unit_keys = [entry.unit_key(state, i)
+                         for i in range(max(units) + 1)]
+        samples = []
+        for i in units:
+            samples.append((i, entry.unit(state, i)))
+            run.sync()
+        entry.release(state)
     checks, bad = entry.check(run, samples)
-    return {k: c["value"] for k, c in checks.items()}, bad
+    kept = {k: run.inputs[k] for k in KEEP if k in run.inputs}
+    return {k: c["value"] for k, c in checks.items()}, bad, kept
 
 
 def control_reading(harness, spec, workload, seed, device):
@@ -59,7 +71,10 @@ def main(argv=None) -> int:
     ap.add_argument("--control-seeds", type=int, default=3)
     ap.add_argument("--first-seed", type=int, default=2_000_000_011)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--faults", default="")
+    ap.add_argument("--fault-seeds", type=int, default=3)
     args = ap.parse_args(argv)
+    faults = [f for f in args.faults.split(",") if f]
 
     import torch
 
@@ -68,16 +83,28 @@ def main(argv=None) -> int:
     spec = harness.Spec()
     prog_max: dict = {}
     ctrl_min: dict = {}
+    fault_min: dict = {}
     for j in range(args.seeds):
         seed = args.first_seed + 7919 * j
         t0 = time.perf_counter()
-        got, bad = program_reading(harness, spec, args.workload, seed,
-                                   args.device)
+        got, bad, kept = program_reading(harness, spec, args.workload, seed,
+                                         args.device)
         for k, v in got.items():
             prog_max[k] = max(prog_max.get(k, v), v)
         print(json.dumps({"side": "program", "seed": seed, "readings": got,
                           "units_over_limit": bad,
                           "seconds": time.perf_counter() - t0}), flush=True)
+        for f in faults if j < args.fault_seeds else ():
+            t0 = time.perf_counter()
+            got, bad, _ = program_reading(harness, spec, args.workload, seed,
+                                          args.device, fault=f, inputs=kept)
+            mins = fault_min.setdefault(f, {})
+            for k, v in got.items():
+                mins[k] = min(mins.get(k, v), v)
+            print(json.dumps({"side": f"fault:{f}", "seed": seed,
+                              "readings": got, "units_over_limit": bad,
+                              "seconds": time.perf_counter() - t0}),
+                  flush=True)
         if args.device == "cuda":
             torch.cuda.empty_cache()
     for j in range(args.control_seeds):
@@ -92,6 +119,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
     print(json.dumps({"workload": args.workload,
                       "program_max": prog_max, "control_min": ctrl_min,
+                      "fault_min": fault_min,
                       "limits": spec.mix(spec.cell(args.workload)["traffic"])
                       ["limits"]}), flush=True)
     return 0

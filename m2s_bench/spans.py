@@ -7,17 +7,56 @@ profiler named ``m2s.<entry>[.<layer>]``, on the device trace's clock.
 Spans nest as the calls do, and the innermost span open at a moment owns
 it. A run of a program without spans reads nothing here (the readers
 return None).
+
+The trainer's step (``train.fit.train_step_fn``) opens no span of its own
+around its layers; torch's own host events in it give them
+(``training_spans``): the step from its optimizer's ``zero_grad`` to the
+end of its optimizer step, its backward from the first to the last
+autograd node evaluated in between, and the optimizer step.
 """
 
 from __future__ import annotations
 
+import bisect
+
 from .trace import Trace
 
 PREFIX = "m2s."
-ENTRIES = ("m2s.convert", "m2s.render")   # a cell's units
+STEP, BACKWARD, OPTIMIZER = "torch.step", "torch.backward", "torch.optimizer"
+ENTRIES = ("m2s.convert", "m2s.render", STEP)   # a cell's units
 OUTSIDE = "outside"    # moments under no span
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
          "cudaEventSynchronize", "cudaMemcpy")
+ZERO_GRAD = "Optimizer.zero_grad#"
+OPT_STEP = "Optimizer.step#"
+AUTOGRAD_NODE = "autograd::engine::evaluate_function: "
+
+
+def training_spans(host) -> list:
+    """(start, end, name) of each training step's STEP, BACKWARD and
+    OPTIMIZER spans, from torch's host events in ``host``: a step runs
+    from an optimizer's zero_grad to the end of the optimizer step that
+    follows it."""
+    zero = sorted((s, e) for s, e, name in host
+                  if name.startswith(ZERO_GRAD))
+    nodes = sorted((s, e) for s, e, name in host
+                   if name.startswith(AUTOGRAD_NODE))
+    node_starts = [s for s, _ in nodes]
+    out = []
+    for s, e, name in host:
+        if not name.startswith(OPT_STEP):
+            continue
+        j = bisect.bisect_right(zero, (s, float("inf"))) - 1
+        if j < 0:
+            continue
+        z0, z1 = zero[j]
+        out += [(z0, e, STEP), (s, e, OPTIMIZER)]
+        lo = bisect.bisect_left(node_starts, z1)
+        hi = bisect.bisect_left(node_starts, s)
+        inside = [n for n in nodes[lo:hi] if n[1] <= s]
+        if inside:
+            out.append((inside[0][0], max(n[1] for n in inside), BACKWARD))
+    return out
 
 
 def innermost(spans) -> list:
@@ -47,7 +86,8 @@ def split_idle(host, device) -> dict:
     ``host`` that overlap it, by the overlap; the rest of the gap goes to
     OUTSIDE. Every span present gets an entry, 0 where it overlaps no
     gap."""
-    spans = [h for h in host if h[2].startswith(PREFIX)]
+    spans = ([h for h in host if h[2].startswith(PREFIX)]
+             + training_spans(host))
     pieces = innermost(spans)
     tot = dict.fromkeys({name for _, _, name in spans}, 0.0)
     tot[OUTSIDE] = 0.0
@@ -75,10 +115,14 @@ def _traced(run) -> bool:
 
 def idle_ms(run, span: str):
     """Device idle ms a unit while ``span`` was the host's innermost span
-    (OUTSIDE: under none); None where the trace holds no such span."""
+    (OUTSIDE: under none); None where the trace holds no such span. The
+    split is made once a trace and kept on it: a cell reads several."""
     if not _traced(run):
         return None
-    tot = split_idle(run.trace.host, run.trace.device)
+    tot = getattr(run.trace, "idle_split", None)
+    if tot is None:
+        tot = run.trace.idle_split = split_idle(run.trace.host,
+                                                run.trace.device)
     if span not in tot or (span == OUTSIDE and len(tot) == 1):
         return None
     return tot[span] * 1e3 / run.completed
@@ -86,7 +130,8 @@ def idle_ms(run, span: str):
 
 def count_syncs(host) -> tuple:
     """(blocking waits inside an entry span, entry spans) in ``host``."""
-    entries = sorted((s, e) for s, e, name in host if name in ENTRIES)
+    entries = sorted((s, e) for s, e, name in host + training_spans(host)
+                     if name in ENTRIES)
     waits = sorted(s for s, _, name in host if name in SYNCS)
     n, j = 0, 0
     for s, e in entries:

@@ -13,6 +13,7 @@ from m2s_bench import harness  # noqa: E402
 CONVERT = "asset100k_tex2048_res1024.convert_queue"
 SHADOWS = "asset20k_tex512_res512.orbit_final_shadows"
 ALBEDO = "asset100k_tex2048_res1024.orbit_albedo"
+FIT = "asset20k_tex512_res512.fit_splats_2view"
 SEED = 3_000_000_019
 
 
@@ -31,6 +32,8 @@ def tiny_mix(spec, cell):
     mix = spec.mix(spec.cell(cell)["traffic"])
     if mix["entry"] == "orbit":
         mix.update(width=128, height=96, warm_frames=1)
+    if mix["entry"] == "fit_splats":
+        mix.update(width=64, height=64)
     return mix
 
 

@@ -5,7 +5,7 @@ import json
 import re
 
 import pytest
-from conftest import ALBEDO, CONVERT, SHADOWS
+from conftest import ALBEDO, CONVERT, FIT, SHADOWS
 
 from m2s_bench import harness
 
@@ -20,7 +20,7 @@ def test_top_level_keys(spec):
     assert 1 <= spec.data["run_seconds"] <= 51
 
 
-@pytest.mark.parametrize("cell", [CONVERT, SHADOWS, ALBEDO])
+@pytest.mark.parametrize("cell", [CONVERT, SHADOWS, ALBEDO, FIT])
 def test_cell_parts_found_by_name(spec, cell):
     w = spec.cell(cell)
     assert w["chips"] == 1 and len(w["why"]) <= 200
@@ -61,6 +61,15 @@ def test_metric_and_config_entries(spec):
 
 def test_roofline_modules_found():
     mods = {m.KERNEL: m for m in harness.roofline_modules()}
-    assert set(mods) >= {"k2", "k3", "k5"}
+    assert set(mods) >= {"k2", "k3", "k4", "k5"}
     for m in mods.values():
         assert callable(m.counted) and m.PATTERN and len(m.TARGET) == 2
+
+
+def test_every_reader_has_a_metric(spec):
+    """Each reader under metrics/ reads a metric that BENCHMARK.json names:
+    a retired metric takes its reader with it."""
+    names = {m["name"] for g in ("end_to_end", "per_layer")
+             for m in spec.data[g]}
+    files = {p.stem for p in (harness.HERE / "metrics").glob("*.py")}
+    assert files == names

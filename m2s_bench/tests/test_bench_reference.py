@@ -98,7 +98,7 @@ def _binned(spec, variant, width=64, height=48):
     return binned, height, ty, tx
 
 
-@pytest.mark.parametrize("variant", ["full", "depth"])
+@pytest.mark.parametrize("variant", ["full", "albedo", "depth"])
 def test_covered_pairs_by_hand(spec, variant):
     """covered_pairs' chunked walk against a count pair by pair: each
     binned pair alone, tested at every pixel of its tile."""
@@ -175,3 +175,109 @@ def test_k2_counts_by_hand(spec):
     assert 0 < taps <= atlas.shape[1] * kw["k"] * 160
     assert nbytes == 58 * 4 * tris + taps + 25 * 4 * cap
     assert flops == 400 * cap
+
+
+def test_k4_counts_by_hand(spec):
+    """K4's counts on the reference's call: the albedo fields of every
+    pair, the tile starts, 5 pixel planes read (4 cotangent channels and
+    one total) and the gradient written; 100 operations a pair and 70 a
+    covered (pair, pixel) over every chunk; the gradient is the plain
+    version's."""
+    from m2s_bench.reference.render import composite as RC
+
+    mods = {m.KERNEL: m for m in harness.roofline_modules()}
+    binned, height, ty, tx = _binned(spec, "albedo")
+    fields, starts = binned.fields, binned.tile_starts
+    out = RC.composite_plain(fields, starts, height, ty, tx, True)
+    ct = torch.rand(out.shape, generator=torch.Generator().manual_seed(3))
+    dfields, (nbytes, flops) = mods["k4"].counted(
+        RC.composite_backward_plain, fields, starts, out, ct, height, ty, tx,
+        True, tile_batch=7)
+    pairs = int(starts[-1])
+    cov, _ = counting.covered_pairs(fields, starts, height, ty, tx, "albedo")
+    assert torch.equal(dfields, RC.composite_backward_plain(
+        fields, starts, out, ct, height, ty, tx, True))
+    assert nbytes == (9 * pairs * 4 + (ty * tx + 1) * 4
+                      + 5 * ty * tx * 4096 + fields.numel() * 4)
+    assert flops == 100 * pairs + 70 * cov and cov > 0
+
+
+def _random_splats(n, seed, splats_cls):
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=g)
+
+    quat = torch.randn((n, 4), generator=g)
+    normal = torch.randn((n, 3), generator=g)
+    return splats_cls(
+        pos=u(n, 3, lo=-0.6, hi=0.6),
+        color=torch.cat([u(n, 3), u(n, 1, lo=0.3, hi=0.95)], 1),
+        scale=u(n, 3, lo=0.01, hi=0.06),
+        normal=normal / normal.norm(dim=1, keepdim=True),
+        quat=quat / quat.norm(dim=1, keepdim=True),
+        pbr=u(n, 2), valid=u(n) > 0.1)
+
+
+def test_fit_loss_and_gradients_match_the_port():
+    """The reference's mean L2 over two views and its gradient with respect
+    to every leaf against the port's ``l2_loss`` (its plain versions on the
+    CPU), on seeded random splats."""
+    from mesh2splat_torch.train import fit
+    from mesh2splat_torch.types import Splats, make_camera
+
+    from m2s_bench.reference import train as RT
+    from m2s_bench.reference import types as RTY
+
+    w, h = 64, 48
+    eyes = ([0.0, 0.0, 3.2], [0.8, 0.4, 3.0])
+    targets = torch.rand((2, h, w, 3),
+                         generator=torch.Generator().manual_seed(9))
+    start = _random_splats(300, 5, Splats)
+    params = fit.SplatParams.from_splats(start)
+    cams = [make_camera(e, [0, 0, 0], [0, 1, 0], 1.0, w, h, device="cpu")
+            for e in eyes]
+    cap = fit.pair_budget(start, cams, w, h)
+    loss = fit.l2_loss(params, start.valid, cams, targets, w, h,
+                       pair_capacity=cap)
+    loss.backward()
+
+    ref_start = _random_splats(300, 5, RTY.Splats)
+    p = RT.leaves_from_splats(ref_start)
+    ref_cams = [RTY.make_camera(e, [0, 0, 0], [0, 1, 0], 1.0, w, h,
+                                device="cpu") for e in eyes]
+    assert RB.round_pow2_budget(RT.pair_need(ref_start, ref_cams, w, h)) \
+        == cap
+    ref_loss = RT.l2_loss(p, ref_start.valid, ref_cams, targets, w, h, 1.0,
+                          cap, tile_batch=5)
+    ref_loss.backward()
+    assert float(ref_loss.detach()) > 0.01
+    assert float(loss.detach()) == pytest.approx(float(ref_loss.detach()),
+                                                 rel=1e-6)
+    for name in RT.LEAVES:
+        got, want = getattr(params, name).grad, p[name].grad
+        if want is None or not want.any():
+            assert got is None or not got.any(), name
+            continue
+        assert float(want.abs().max()) > 0, name
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
+def test_reference_adam_is_torchs():
+    """The reference's Adam against ``torch.optim.Adam`` with the program's
+    settings, over three steps of the same gradients."""
+    from m2s_bench.reference import train as RT
+
+    g = torch.Generator().manual_seed(1)
+    a = torch.randn(50, generator=g)
+    b = a.clone().requires_grad_(True)
+    opt = torch.optim.Adam([b], lr=1e-2, betas=RT.ADAM_BETAS,
+                           eps=RT.ADAM_EPS)
+    adam = RT.Adam([a], 1e-2)
+    for _ in range(3):
+        grad = torch.randn(50, generator=g)
+        b.grad = grad.clone()
+        opt.step()
+        adam.step([grad])
+    torch.testing.assert_close(a, b.detach(), rtol=1e-6, atol=1e-7)

@@ -2,6 +2,7 @@
 come out correct, runs with a fault planted in the timed path and the
 bfloat16 control come out not correct."""
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -9,17 +10,22 @@ import sys
 
 import pytest
 import torch
-from conftest import ALBEDO, CONVERT, SEED, SHADOWS, run_tiny, tiny_config, \
-    tiny_mix
+from conftest import ALBEDO, CONVERT, FIT, SEED, SHADOWS, run_tiny, \
+    tiny_config, tiny_mix
 
 from m2s_bench import harness
-from m2s_bench.entries import convert_queue, orbit
+from m2s_bench.entries import convert_queue, fit_splats, orbit
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
-@pytest.mark.parametrize("cell", [CONVERT, SHADOWS])
+# readers of the device's work by the host op that launched it: on the CPU
+# nothing is launched
+LAUNCH_READERS = {"gather_bwd_ms.fit"}
+
+
+@pytest.mark.parametrize("cell", [CONVERT, SHADOWS, FIT])
 @pytest.mark.parametrize("trace", [False, True])
 def test_result_line(spec, cell, trace):
     result, checks, run = run_tiny(spec, cell, trace=trace)
@@ -29,7 +35,8 @@ def test_result_line(spec, cell, trace):
     want = {m["name"] for m in spec.metrics(cell, trace)}
     got = set(result["metrics"])
     if trace:   # on the CPU no kernel ran: the roofline readers find nothing
-        assert got == {n for n in want if "roofline" not in n}
+        assert got == {n for n in want
+                       if "roofline" not in n and n not in LAUNCH_READERS}
         assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
         assert {"busy_s", "window_s"} <= set(result["device"])
     else:   # on the CPU no card is traced: its trace's metrics are absent
@@ -69,6 +76,7 @@ def test_no_jax_anywhere():
         "import glob, m2s_bench.run, m2s_bench.harness, m2s_bench.limits\n"
         "from m2s_bench import harness\n"
         "import m2s_bench.entries.convert_queue, m2s_bench.entries.orbit\n"
+        "import m2s_bench.entries.fit_splats\n"
         "[harness.load_file(__import__('pathlib').Path(p)) for p in "
         "glob.glob('m2s_bench/metrics/*.py') + "
         "glob.glob('m2s_bench/roofline/*.py')]\n"
@@ -80,7 +88,8 @@ def test_no_jax_anywhere():
 def test_reference_imports_nothing_of_the_program():
     tops = _modules_after(
         "import m2s_bench.reference.entry, m2s_bench.counting\n"
-        "import m2s_bench.reference.render.pipeline")
+        "import m2s_bench.reference.render.pipeline\n"
+        "import m2s_bench.reference.train")
     assert not tops & {"mesh2splat_torch", *harness.FORBIDDEN}
 
 
@@ -105,26 +114,42 @@ def _drop_half_rows(img):
     return img
 
 
+def _loss_not_finite(loss):
+    return loss * float("nan")
+
+
 @pytest.mark.parametrize("cell,module,fault", [
     (CONVERT, convert_queue, _alter_one_value),
     (CONVERT, convert_queue, _drop_half),
     (SHADOWS, orbit, _alter_one_pixel),
     (SHADOWS, orbit, _drop_half_rows),
     (ALBEDO, orbit, _alter_one_pixel),
+    (FIT, fit_splats, _loss_not_finite),
+    (FIT, fit_splats, "unchanged"),
+    (FIT, fit_splats, "half_batch"),
+    (FIT, fit_splats, "color_grad_scaled"),
 ])
 def test_fault_in_timed_path_is_not_correct(spec, monkeypatch, cell, module,
                                             fault):
     """The rest of a run with the timed path broken underneath: every
-    output altered where it is produced."""
-    orig = module.unit
-    monkeypatch.setattr(module, "unit",
-                        lambda state, i: fault(orig(state, i)))
-    result, checks, _ = run_tiny(spec, cell)
+    output altered where it is produced, or (named) a fault planted in the
+    program under the entry: a trainer's step that leaves its state
+    unchanged, leaves half of its views out, or alters one gradient."""
+    if isinstance(fault, str):
+        planted = module.planted(fault)
+    else:
+        orig = module.unit
+        monkeypatch.setattr(module, "unit",
+                            lambda state, i: fault(orig(state, i)))
+        planted = contextlib.nullcontext()
+    with planted:
+        result, checks, _ = run_tiny(spec, cell)
     assert result["correct"] is False and result["failed"] >= 1
 
 
 @pytest.mark.parametrize("cell,module", [
-    (CONVERT, convert_queue), (SHADOWS, orbit), (ALBEDO, orbit)])
+    (CONVERT, convert_queue), (SHADOWS, orbit), (ALBEDO, orbit),
+    (FIT, fit_splats)])
 def test_control_is_not_correct(spec, cell, module):
     """The control (the reference's splats stored in bfloat16) reads over
     the cell's limit on at least one of its numbers."""
@@ -136,10 +161,12 @@ def test_control_is_not_correct(spec, cell, module):
     assert any(v > mix["limits"][k] for k, v in got.items()), got
 
 
-def test_device_ms_per_conversion_reads_the_card_trace():
-    """The card's busy time over the conversions completed; nothing
-    without a trace or with an idle card."""
-    read = harness.metric_reader("device_ms_per_conversion").read
+@pytest.mark.parametrize("metric", ["device_ms_per_conversion",
+                                    "device_ms_per_step"])
+def test_device_ms_per_conversion_reads_the_card_trace(metric):
+    """The card's busy time over the units completed; nothing without a
+    trace or with an idle card."""
+    read = harness.metric_reader(metric).read
 
     class Run:
         trace, latencies_s = None, [0.1] * 4
