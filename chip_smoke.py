@@ -680,7 +680,9 @@ def training_paths(torch, kernels, TFIT, scene, sp, mult, proj_kw, cam,
                 mesh, grey, cfg, tcams, tex_targets,
                 TFIT.FitTexturesConfig(steps=TEX_STEPS, lr=5e-2,
                                        width=TEX_PX, height=TEX_PX)),
-            {"texel_rows": TEX_STEPS, "fragment_apply": TEX_STEPS,
+            # K1 and K2 once more: the conversion that sizes the renders'
+            # class-C budget
+            {"texel_rows": TEX_STEPS + 1, "fragment_apply": TEX_STEPS + 1,
              "composite_albedo": 2 * TEX_STEPS,
              "composite_bwd_albedo": 2 * TEX_STEPS,
              "composite_bwd_state_albedo": 2 * TEX_STEPS},

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils.profiling import annotate
 from .numerics import div, fma, sqrt
 
 # ---- record layout: field-major rows of the (REC_W, T_pad) record table ---
@@ -411,7 +412,8 @@ class _FragmentApply(torch.autograd.Function):
     forward leaves (with local_in_kernel, its row 2 then holds local). With
     rows it saves the atlas and rows, not gathered taps, and its backward
     gathers them again under autograd, so the gradient reaches the atlas
-    through ``index_select``'s own VJP."""
+    through ``index_select``'s own VJP. The backward runs in the span
+    ``m2s.convert.fragment_vjp``."""
 
     @staticmethod
     def forward(ctx, records, tapsT, metaT, rows, kw):
@@ -426,29 +428,31 @@ class _FragmentApply(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out):
-        records, tapsT, metaT, rows = ctx.saved_tensors
-        kw = dict(ctx.kw)
-        packed = kw.pop("taps_packed")
-        del kw["local_in_kernel"]
-        has_stack = kw["has_base"] or kw["has_normal"] or kw["has_mr"]
-        want_taps = has_stack and not packed and ctx.needs_input_grad[1]
-        with torch.enable_grad():
-            rec = records.detach().requires_grad_(ctx.needs_input_grad[0])
-            src = taps = None
-            if has_stack:
-                src = tapsT.detach().requires_grad_(want_taps)
-                taps = src if rows is None else src.index_select(1, rows)
-                if packed:
-                    taps = _unpack_taps(taps)
-            out = _fragment_math(_gather_rec(rec, metaT), taps, metaT, **kw)
-            inputs = [t for t, need in ((rec, ctx.needs_input_grad[0]),
-                                        (src, want_taps)) if need]
-            grads = iter(torch.autograd.grad(out, inputs, g_out,
-                                             allow_unused=True)
-                         if inputs else ())
-        d_rec = next(grads) if ctx.needs_input_grad[0] else None
-        d_taps = next(grads) if want_taps else None
-        return d_rec, d_taps, None, None, None
+        with annotate("m2s.convert.fragment_vjp"):
+            records, tapsT, metaT, rows = ctx.saved_tensors
+            kw = dict(ctx.kw)
+            packed = kw.pop("taps_packed")
+            del kw["local_in_kernel"]
+            has_stack = kw["has_base"] or kw["has_normal"] or kw["has_mr"]
+            want_taps = has_stack and not packed and ctx.needs_input_grad[1]
+            with torch.enable_grad():
+                rec = records.detach().requires_grad_(ctx.needs_input_grad[0])
+                src = taps = None
+                if has_stack:
+                    src = tapsT.detach().requires_grad_(want_taps)
+                    taps = src if rows is None else src.index_select(1, rows)
+                    if packed:
+                        taps = _unpack_taps(taps)
+                out = _fragment_math(_gather_rec(rec, metaT), taps, metaT,
+                                     **kw)
+                inputs = [t for t, need in ((rec, ctx.needs_input_grad[0]),
+                                            (src, want_taps)) if need]
+                grads = iter(torch.autograd.grad(out, inputs, g_out,
+                                                 allow_unused=True)
+                             if inputs else ())
+            d_rec = next(grads) if ctx.needs_input_grad[0] else None
+            d_taps = next(grads) if want_taps else None
+            return d_rec, d_taps, None, None, None
 
 
 def fragment_apply(records, tapsT, metaT, res, geom, k,

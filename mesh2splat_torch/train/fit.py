@@ -102,18 +102,28 @@ def render_rgb(splats: Splats, camera: Camera, width: int, height: int,
     return out["albedo"][..., :3]
 
 
-def l2_loss(params: SplatParams, valid, cameras, targets, width, height,
-            std_dev=1.0, use_tiled=True, pair_capacity=0):
-    """Mean L2 over a batch of views: ``cameras`` a sequence of cameras,
-    ``targets`` (V, H, W, 3)."""
-    splats = params.to_splats(valid)
+def mean_l2(splats: Splats, cameras, targets, width, height, std_dev=1.0,
+            splat_format: SplatFormat = SplatFormat.PLY_3DGS,
+            use_tiled=True, pair_capacity=0):
+    """Mean over a batch of views of each view's mean squared error between
+    ``render_rgb`` of ``splats`` and its target: ``cameras`` a sequence of
+    cameras, ``targets`` (V, H, W, 3)."""
     losses = [
         torch.mean((render_rgb(splats, cam, width, height, std_dev,
+                               splat_format=splat_format,
                                use_tiled=use_tiled,
                                pair_capacity=pair_capacity) - target) ** 2)
         for cam, target in zip(cameras, targets)
     ]
     return torch.stack(losses).mean()
+
+
+def l2_loss(params: SplatParams, valid, cameras, targets, width, height,
+            std_dev=1.0, use_tiled=True, pair_capacity=0):
+    """Mean L2 over a batch of views of the splats ``params`` holds, rendered
+    in SplatFormat.PLY_3DGS."""
+    return mean_l2(params.to_splats(valid), cameras, targets, width, height,
+                   std_dev, use_tiled=use_tiled, pair_capacity=pair_capacity)
 
 
 @dataclasses.dataclass
@@ -161,15 +171,18 @@ def train_step_fn(optimizer, width, height, std_dev=1.0, use_tiled=True,
 
 
 @torch.no_grad()
-def pair_budget(splats: Splats, cameras, width, height, mesh=None) -> int:
-    """The class-C pair budget of ``l2_loss``'s renders: the worst view's
-    need, projected in the format the loss renders (PLY_3DGS, where std_dev
-    has no effect), rounded up to a power of two; one host read. With
-    ``mesh`` the worst over every rank's ``cameras`` (all_reduce MAX)."""
+def pair_budget(splats: Splats, cameras, width, height, mesh=None,
+                splat_format: SplatFormat = SplatFormat.PLY_3DGS,
+                std_dev: float = 1.0) -> int:
+    """The class-C pair budget of renders of ``splats``: the worst view's
+    need, projected in ``splat_format`` with ``std_dev`` (the defaults are
+    ``l2_loss``'s: PLY_3DGS, where std_dev has no effect), rounded up to a
+    power of two; one host read. With ``mesh`` the worst over every rank's
+    ``cameras`` (all_reduce MAX)."""
     need = torch.stack([
-        required_overflow(project_splats(splats, cam,
+        required_overflow(project_splats(splats, cam, std_dev=std_dev,
                                          render_mode=RenderMode.ALBEDO,
-                                         splat_format=SplatFormat.PLY_3DGS),
+                                         splat_format=splat_format),
                           width, height)
         for cam in cameras]).max()
     if mesh is not None:
@@ -228,11 +241,46 @@ class FitTexturesConfig:
     use_tiled: bool = True
 
 
+def texture_step_fn(optimizer, tex, mesh, material, conv_config, bbox,
+                    width, height, pair_capacity=0, use_tiled=True):
+    """A (cameras, targets) -> loss step of ``fit_textures``, the counterpart
+    of ``train_step_fn``: converts ``mesh`` with ``material`` whose
+    base-colour map is ``tex`` (a leaf that ``optimizer`` holds), renders
+    each view in SplatFormat.MESH2SPLAT with the conversion's sigma, takes
+    the mean L2 over the views, carries its gradient back through the
+    conversion into ``tex``, steps the optimizer and clamps ``tex`` to
+    [0, 1] in place. ``bbox``: the mesh's (lo, hi), as ``convert`` takes
+    it; ``pair_capacity``: the renders' class-C pair budget (0: the
+    binner's default). Returns the detached loss."""
+    from ..ops.conversion import convert
+
+    lo, hi = bbox
+    mat = dataclasses.replace(material, base_color=tex, has_base_color=True)
+
+    def step(cameras, targets):
+        optimizer.zero_grad(set_to_none=True)
+        splats = convert(mesh, mat, lo, hi, conv_config)
+        loss = mean_l2(splats, cameras, targets, width, height,
+                       std_dev=conv_config.scale_multiplier,
+                       splat_format=SplatFormat.MESH2SPLAT,
+                       use_tiled=use_tiled, pair_capacity=pair_capacity)
+        loss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            tex.clamp_(0.0, 1.0)
+        return loss.detach()
+
+    return step
+
+
 def fit_textures(mesh_geom, material, conv_config, cameras, targets,
                  config: FitTexturesConfig, device="cuda"):
-    """Optimize the source base-colour texture through conversion; the
-    texture is clipped to [0, 1] after each step. Returns (material with
-    the fitted texture, per-step loss history)."""
+    """Optimize the source base-colour texture through conversion, step
+    after step of ``texture_step_fn``; the texture is clipped to [0, 1]
+    after each step. The splats' geometry does not depend on the texture,
+    so the class-C pair budget of the tiled renders is set once, from a
+    conversion of the start. Returns (material with the fitted texture,
+    per-step loss history)."""
     from ..ops.conversion import convert
 
     dev = resolve_device(device)
@@ -244,29 +292,19 @@ def fit_textures(mesh_geom, material, conv_config, cameras, targets,
     tex = material.base_color.detach().clone().requires_grad_(True)
     opt = _adam([tex], config.lr)
 
-    def loss_fn():
-        mat = dataclasses.replace(material, base_color=tex,
-                                  has_base_color=True)
-        splats = convert(mesh_geom, mat, lo, hi, conv_config)
-        losses = [
-            torch.mean((render_rgb(splats, cam, config.width, config.height,
-                                   std_dev=conv_config.scale_multiplier,
-                                   splat_format=SplatFormat.MESH2SPLAT,
-                                   use_tiled=config.use_tiled)
-                        - target) ** 2)
-            for cam, target in zip(cameras, targets)
-        ]
-        return torch.stack(losses).mean()
-
-    history = []
-    for _ in range(config.steps):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn()
-        loss.backward()
-        opt.step()
+    pair_cap = 0
+    if config.use_tiled:
         with torch.no_grad():
-            tex.clamp_(0.0, 1.0)
-        history.append(float(loss.detach()))
+            splats = convert(mesh_geom, material, lo, hi, conv_config)
+        pair_cap = pair_budget(splats, cameras, config.width, config.height,
+                               splat_format=SplatFormat.MESH2SPLAT,
+                               std_dev=conv_config.scale_multiplier)
+        del splats
+    step = texture_step_fn(opt, tex, mesh_geom, material, conv_config,
+                           (lo, hi), config.width, config.height,
+                           pair_capacity=pair_cap,
+                           use_tiled=config.use_tiled)
+    history = [float(step(cameras, targets)) for _ in range(config.steps)]
     fitted = dataclasses.replace(material, base_color=tex.detach(),
                                  has_base_color=True)
     return fitted, history

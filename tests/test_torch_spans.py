@@ -123,3 +123,36 @@ def test_no_span_outside_a_profiler(small_shadows):
         with annotate("m2s.alone"):
             torch.ones(8).sum()
     assert [e.name() for e in _m2s_events(prof)] == ["m2s.alone"]
+
+
+def test_fragment_vjp_span_in_a_texture_gradient():
+    """A texture gradient through the conversion runs the fragment VJP
+    once, in the span ``m2s.convert.fragment_vjp``, which opens after the
+    forward's spans have closed (nothing else of a conversion or a frame
+    runs in a backward)."""
+    import dataclasses
+
+    from mesh2splat_torch.ops.conversion import ConversionConfig, convert
+    from mesh2splat_torch.train import fit
+    from mesh2splat_torch.types import SplatFormat, make_camera
+
+    mesh, mat, _ = _textured_quad_scene().primitives[0]
+    lo, hi = mesh.bbox()
+    cfg = ConversionConfig(resolution=16, layers=2)
+    cam = make_camera(eye=[0.3, 0.2, 2.0], center=[0, 0, 0], up=[0, 1, 0],
+                      fov_y_rad=1.0, width=PX, height=PX, device="cpu")
+    tex = mat.base_color.clone().requires_grad_(True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        splats = convert(mesh, dataclasses.replace(mat, base_color=tex), lo,
+                         hi, cfg)
+        img = fit.render_rgb(splats, cam, PX, PX,
+                             std_dev=cfg.scale_multiplier,
+                             splat_format=SplatFormat.MESH2SPLAT)
+        img.mean().backward()
+    assert bool(tex.grad.abs().sum() > 0)
+    events = _m2s_events(prof)
+    vjp = [e for e in events if e.name() == "m2s.convert.fragment_vjp"]
+    assert len(vjp) == 1 and not vjp[0].is_user_annotation()
+    forward_end = max(e.end_ns() for e in events if e is not vjp[0])
+    assert vjp[0].start_ns() >= forward_end
+    assert (None, "m2s.convert.fragment_vjp") in _nesting(events)
